@@ -7,18 +7,34 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name and power limit;
-  2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-     for sm_90a (seconds, and ptxas' registers / shared memory / spills);
-  3. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16) and on the
-     cases of tests/test_kernels.py;
-  4. kernel time beside its bound, the plain version's time and
+  2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+     nvcc for sm_90a, one process per source, all started together (seconds,
+     and ptxas' registers / shared memory / spills);
+  3. attention kernels against their plain PyTorch versions on the card, at
+     the main path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16)
+     and on the cases of tests/test_kernels.py;
+  4. attention kernel time beside its bound, the plain version's time and
      ``scaled_dot_product_attention``'s (a yardstick the port never calls);
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only;
-  6. token parity of a tiny float32 model between the CPU (plain versions)
-     and the card (kernels), and again on the card with host-tier swap.
+  6. token parity of a tiny float32 attention model between the CPU (plain
+     versions) and the card (kernels), and again on the card with host-tier
+     swap;
+  7. the SSD chunk-scan kernel against its plain chunked version in float32:
+     the cases of tests/test_kernels.py and mamba2-1.3b's shape (B 1, H 64,
+     P 64, N 128, chunk 64, S 64 / 128 / 512), each from a zero and a random
+     initial state, with normal and slow decay; y, the final state and every
+     chunk's state;
+  8. SSD kernel time at the serve's span shape beside its bound and the plain
+     version's time (no single PyTorch call computes the scan);
+  9. serve full-width mamba2-1.3b (48 layers, bf16, seeded random weights)
+     through ``EchoEngine`` and the state-snapshot runner: every request
+     finishes, every span's 48 SSD scans go through the kernel, snapshot
+     prefix reuse happens on the card; then a profile of one span and one
+     decode step;
+ 10. token parity of a tiny float32 mamba2 between the CPU, the card, and the
+     card with host-tier swap of state snapshots.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,8 +59,9 @@ from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType, TimeModel
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_splitk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.params import tree_map  # noqa: E402
+from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -56,6 +73,11 @@ TOL = {"decode": {torch.bfloat16: 2e-2, torch.float32: 2e-4},
 REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # main-path shapes: qwen3-4b through the engine's paged runner
 HQ, HKV, HD, BS, MAX_PAGES, CHUNK, NUM_BLOCKS = 32, 8, 128, 16, 32, 64, 2048
+# mamba2-1.3b through the state runner: one block per SSD chunk, engine
+# chunks of two blocks; the snapshot pool holds at most one 97.6 MiB host
+# snapshot per block
+M_BLOCK, M_CHUNK, M_BLOCKS = 64, 128, 64
+SSD_H, SSD_P, SSD_N = 64, 64, 128
 DEV = "cuda"
 
 
@@ -72,7 +94,10 @@ def phase(name):
 def time_ms(fn, iters=30, warmup=3):
     """Mean device time of ``fn`` over ``iters`` launches, CUDA events
     around each launch, with L2 flushed before each one (a 256 MB write):
-    the serving path finds its KV and weights cold, 36 layers apart."""
+    the serving path finds its KV and weights cold, 36 layers apart. A
+    device-side spin of about 0.2 ms after the flush keeps the host ahead
+    of the card, so the wrapper's own host work before its launch never
+    lands between the two events."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     for _ in range(warmup):
         fn()
@@ -80,6 +105,7 @@ def time_ms(fn, iters=30, warmup=3):
           for _ in range(iters)]
     for s, e in ev:
         flush.zero_()
+        torch.cuda._sleep(400_000)
         s.record()
         fn()
         e.record()
@@ -283,18 +309,13 @@ def phase_timing(gen, errs):
     return rows
 
 
-def _profile_steps(runner):
-    """Where a step's time goes: for one decode step (batch 8) and one
-    prefill chunk, the wall time (mean of 5, no profiler), and from one
-    ``torch.profiler`` trace the device time summed over kernels and
-    copies, their number, and the ones that took longest."""
+def _profile_steps(steps, ours, what):
+    """Where a step's time goes: for each of ``steps`` (name -> call), the
+    wall time (mean of 5, no profiler), and from one ``torch.profiler``
+    trace the device time summed over kernels and copies, their number,
+    and the ones that took longest; then the share of our kernels (names
+    containing one of ``ours``)."""
     from torch.profiler import ProfilerActivity, profile
-    tables = [list(range(i * 8, i * 8 + 8)) for i in range(8)]
-    steps = {
-        "decode B=8 ctx=101": lambda: runner.decode([1] * 8, tables, [100] * 8),
-        "prefill Sc=64 ctx=128": lambda: runner.prefill_chunk(
-            list(range(CHUNK)), 128, list(range(64, 76))),
-    }
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -319,10 +340,20 @@ def _profile_steps(runner):
               f"({dev_ms / wall_ms:.1%}), {len(dev)} device kernels and copies")
         for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
             print(f"    {t:8.3f} ms x{n:<4d} {kname[:90]}")
-        attn = [(t, n) for kname, (t, n) in by_name.items()
-                if "splitk_" in kname or "chunked_prefill_kernel" in kname]
-        print(f"    attention kernels (ours): {sum(t for t, _ in attn):.3f} ms over "
-              f"{sum(n for _, n in attn)} launches")
+        mine = [(t, n) for kname, (t, n) in by_name.items()
+                if any(o in kname for o in ours)]
+        print(f"    {what} (ours): {sum(t for t, _ in mine):.3f} ms over "
+              f"{sum(n for _, n in mine)} launches")
+
+
+def _attention_steps(runner):
+    """One decode step (batch 8) and one prefill chunk of the paged runner."""
+    tables = [list(range(i * 8, i * 8 + 8)) for i in range(8)]
+    return {
+        "decode B=8 ctx=101": lambda: runner.decode([1] * 8, tables, [100] * 8),
+        "prefill Sc=64 ctx=128": lambda: runner.prefill_chunk(
+            list(range(CHUNK)), 128, list(range(64, 76))),
+    }
 
 
 def _reset_counts():
@@ -402,7 +433,8 @@ def phase_serve():
     print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
           f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile_steps(eng.runner)
+    _profile_steps(_attention_steps(eng.runner),
+                   ("splitk_", "chunked_prefill_kernel"), "attention kernels")
     del eng, params
     torch.cuda.empty_cache()
     return launches
@@ -459,6 +491,218 @@ def phase_parity():
     print(f"  tokens equal on CPU, CUDA and CUDA+swap: {cpu_tokens}")
 
 
+# ------------------------------------------------------------------ SSD scan
+def ssd_inputs(gen, b, s, h, p, n, slow=False, with_init=False):
+    """x, dt_a, B, C and an optional initial state, float32; ``slow`` makes
+    dt_a about -0.01 softplus(.), so the carried and initial state dominate y."""
+    x = torch.randn((b, s, h, p), generator=gen, device=DEV)
+    dta = -(0.01 if slow else 1.0) * F.softplus(
+        torch.randn((b, s, h), generator=gen, device=DEV))
+    bm = torch.randn((b, s, n), generator=gen, device=DEV)
+    cm = torch.randn((b, s, n), generator=gen, device=DEV)
+    init = torch.randn((b, h, p, n), generator=gen, device=DEV) if with_init else None
+    return x, dta, bm, cm, init
+
+
+def phase_ssd_kernel(gen):
+    phase("7 SSD kernel vs plain version (float32)")
+    err = 0.0
+    cases = [(2, 64, 2, 8, 4, 16), (1, 128, 4, 16, 8, 32), (3, 32, 1, 4, 16, 16)]
+    cases += [(1, s, SSD_H, SSD_P, SSD_N, M_BLOCK) for s in (64, 128, 512)]
+    for b, s, h, p, n, chunk in cases:
+        for with_init in (False, True):
+            for slow in (False, True):
+                x, dta, bm, cm, init = ssd_inputs(gen, b, s, h, p, n, slow, with_init)
+                got = ssd_scan(x, dta, bm, cm, chunk=chunk, initial_state=init,
+                               return_all_states=True)
+                want = ssd_chunked(x, dta, bm, cm, chunk, initial_state=init,
+                                   return_all_states=True)
+                tag = (f"ssd b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+                       f"{'init' if with_init else 'zero-init'}"
+                       f"{' slow-decay' if slow else ''}")
+                for what, g, w in zip(("y", "final", "states"), got, want):
+                    check(g.shape == w.shape, f"{tag} {what}: shape {tuple(g.shape)}")
+                    err = max(err, compare(f"{tag} {what}", g, w, 2e-4))
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_ssd_timing(gen, err):
+    """The SSD scan as the serve's span runs it: one engine chunk of 128
+    tokens, from a state, with every chunk's state captured."""
+    phase("8 SSD kernel time")
+    b, s, h, p, n, chunk = 1, M_CHUNK, SSD_H, SSD_P, SSD_N, M_BLOCK
+    x, dta, bm, cm, init = ssd_inputs(gen, b, s, h, p, n, with_init=True)
+    nc = s // chunk
+    f32 = 4
+    nbytes = f32 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
+                    + (2 + nc) * b * h * p * n)   # x, y, dt_a, B, C, init, final, states
+    tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
+    flops = 2 * b * nc * h * (tri * n + tri * p + 2 * chunk * n * p)
+    t_bound, by = bound(nbytes, flops, torch.float32)
+    row = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:66",
+        shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} f32, initial state, "
+              f"per-chunk states",
+        ms=time_ms(lambda: ssd_scan(x, dta, bm, cm, chunk=chunk, initial_state=init,
+                                    return_all_states=True)),
+        plain_ms=time_ms(lambda: ssd_chunked(x, dta, bm, cm, chunk, initial_state=init,
+                                             return_all_states=True)),
+        library_ms=None, bound_ms=t_bound, bound_by=by, max_abs_err=err)
+    print(f"  ssd_scan [{row['shape']}]: kernel {row['ms']:.4f} ms, bound "
+          f"{t_bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+          f"plain {row['plain_ms']:.4f} ms, library none (no single PyTorch call "
+          f"computes the SSD scan)")
+    return row
+
+
+def _reset_state_counts(runner=None):
+    ssd_scan.launches = 0
+    ssd_chunked.cuda_calls = 0
+    ref.ref_ssd_sequential.cuda_calls = 0
+    if runner is not None:
+        runner.span_calls = 0
+
+
+def phase_serve_mamba():
+    phase("9 serve mamba2-1.3b at full width")
+    cfg = get_config("mamba2-1.3b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"init: {cfg.num_layers} layers d={cfg.d_model} state N={cfg.ssm_state} "
+          f"vocab={cfg.vocab_size} {cfg.dtype}, {cfg.param_count / 1e9:.3f} B params, "
+          f"one state {model.cache_bytes(1, 1) / 2**20:.1f} MiB, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = EchoEngine(model, params, ECHO, num_blocks=M_BLOCKS, block_size=M_BLOCK,
+                     chunk_size=M_CHUNK, max_pages_per_seq=16,
+                     time_model=TimeModel.h100(), clock="wall", device=DEV)
+    runner = eng.runner
+    # warm the libraries on a spare block id (stale pool slots are harmless)
+    runner.prefill_chunk(list(range(M_BLOCK)), 0, [M_BLOCKS - 1], rid=-1)
+    runner.decode([1], [[M_BLOCKS - 1, M_BLOCKS - 2]], [M_BLOCK], rids=[-1])
+    runner.release(-1)
+    runner.pool.clear()
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+
+    def toks(n):
+        return tuple(int(x) for x in rng.integers(0, vocab, n))
+    online = [Request(prompt=toks(n), max_new_tokens=16, task_type=TaskType.ONLINE,
+                      arrival_time=at, slo=SLO(ttft=2.0, tpot=0.5))
+              for n, at in ((64, 0.0), (128, 0.05), (200, 0.1), (256, 0.2))]
+    offline = []
+    for _ in range(2):
+        doc = toks(192)
+        offline += [Request(prompt=doc + toks(16), max_new_tokens=16,
+                            task_type=TaskType.OFFLINE) for _ in range(3)]
+    for r in online + offline:
+        eng.submit(r)
+
+    _reset_state_counts(runner)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = eng.run(max_iters=5000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssd_scan.launches
+    plain_calls = ssd_chunked.cuda_calls + ref.ref_ssd_sequential.cuda_calls
+    spans = runner.span_calls
+
+    for r in online + offline:
+        check(r.done and r.n_output == r.max_new_tokens,
+              f"request {r.rid} finished {r.n_output}/{r.max_new_tokens} tokens")
+        check(all(0 <= t < vocab for t in r.output_tokens), "token outside the vocabulary")
+    m = eng.bm.metrics
+    print(f"ssd_scan launches {launches}, span calls {spans} (x {cfg.num_layers} layers "
+          f"= {cfg.num_layers * spans}), plain SSD calls on CUDA {plain_calls}, "
+          f"hit blocks {m.hit_blocks} of {m.lookup_blocks} looked up")
+    check(launches == cfg.num_layers * spans, "ssd_scan launches != layers x span calls")
+    check(launches > 0, "the SSD kernel never launched in the serve")
+    check(plain_calls == 0, "the plain SSD scan ran on CUDA tensors in the serve")
+    check(m.hit_blocks > 0, "no snapshot prefix reuse in the serve")
+
+    ttft = [r.ttft() for r in online]
+    tpot = [r.tpot() for r in online]
+    out_tokens = sum(r.n_output for r in online + offline)
+    pool_bytes = sum(t.numel() * t.element_size() for e in runner.pool.values()
+                     for t in tree_leaves(e) if t.device.type == "cpu")
+    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
+          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
+    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
+          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
+    print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
+          f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"snapshot pool {len(runner.pool)} snapshots, {pool_bytes / 2**30:.2f} GiB "
+          f"on the host")
+    spare = [M_BLOCKS - 3, M_BLOCKS - 2, M_BLOCKS - 1]
+    _profile_steps({
+        f"span S={M_CHUNK} from zero state": lambda: runner.prefill_chunk(
+            list(range(M_CHUNK)), 0, spare[:2], rid=-1),
+        f"decode one request at pos {M_CHUNK}": lambda: runner.decode(
+            [1], [spare], [M_CHUNK], rids=[-1]),
+    }, ("ssd_scan_kernel",), "SSD kernel")
+    del eng, runner, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity_mamba():
+    phase("10 CPU vs CUDA token parity (tiny float32 mamba2)")
+    cfg = ModelConfig(name="tiny-mamba2", family="ssm", source="test",
+                      num_layers=2, d_model=64, vocab_size=128, ssm_state=16,
+                      ssm_head_dim=16, ssm_chunk=16, tie_embeddings=True,
+                      dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    cuda_params = tree_map(lambda t: t.to(DEV), params)
+    bs = cfg.ssm_chunk
+
+    def run(p, device, swap):
+        """tests/test_state_tiering.py's workload on a tight pool."""
+        eng = EchoEngine(model, p, ECHO, num_blocks=8, block_size=bs,
+                         chunk_size=2 * bs, max_pages_per_seq=16, max_running=2,
+                         host_kv_blocks=32 if swap else 0, device=device)
+        rng = np.random.default_rng(3)
+
+        def toks(n):
+            return tuple(int(x) for x in rng.integers(0, cfg.vocab_size, n))
+        doc = toks(3 * bs)
+        reqs = [Request(prompt=doc + toks(7), max_new_tokens=4,
+                        task_type=TaskType.OFFLINE) for _ in range(6)]
+        reqs += [Request(prompt=toks(3 * bs), max_new_tokens=4,
+                         task_type=TaskType.ONLINE, arrival_time=0.0004 * (i + 1),
+                         slo=SLO(30.0, 5.0)) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_iters=2000)
+        check(all(r.done for r in reqs), f"tiny mamba2 on {device} left requests unfinished")
+        return [r.output_tokens for r in reqs], eng
+
+    _reset_state_counts()
+    cpu_tokens, _ = run(params, "cpu", swap=False)
+    gpu_tokens, eng = run(cuda_params, DEV, swap=False)
+    check(cpu_tokens == gpu_tokens, f"CPU {cpu_tokens} != CUDA {gpu_tokens}")
+    check(ssd_scan.launches == cfg.num_layers * eng.runner.span_calls > 0,
+          "the CUDA state engine did not run every span through the SSD kernel")
+    check(ssd_chunked.cuda_calls == 0, "the plain SSD scan ran on CUDA tensors")
+    swap_tokens, eng = run(cuda_params, DEV, swap=True)
+    m = eng.bm.metrics
+    print(f"  hit blocks {m.hit_blocks}; swap run: swapped out {m.swapped_out_tokens} "
+          f"/ in {m.swapped_in_tokens} tokens ({m.swapped_out_bytes} / "
+          f"{m.swapped_in_bytes} bytes)")
+    check(m.swapped_out_tokens > 0 and m.swapped_in_tokens > 0,
+          "the host tier never swapped a snapshot")
+    check(cpu_tokens == swap_tokens, f"CPU {cpu_tokens} != CUDA+swap {swap_tokens}")
+    print(f"  tokens equal on CPU, CUDA and CUDA+swap: {cpu_tokens}")
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -467,6 +711,10 @@ def main():
     rows = phase_timing(gen, errs)
     launches = phase_serve()
     phase_parity()
+    ssd_err = phase_ssd_kernel(gen)
+    rows.append(phase_ssd_timing(gen, ssd_err))
+    launches["ssd_scan"] = phase_serve_mamba()
+    phase_parity_mamba()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

@@ -11,6 +11,7 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
     "qwen3-4b": "qwen3_4b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

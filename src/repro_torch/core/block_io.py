@@ -74,8 +74,11 @@ def state_spec(block_bytes: int, *, restore_last_only: bool = True) -> BlockIOSp
 
 def io_spec_for_model(model) -> BlockIOSpec:
     """Derive the byte spec from a model's architecture (duck-typed on the
-    ``Model`` facade: ``cfg`` and a torch ``dtype``). Attention/MoE stacks
-    are paged; the state-snapshot families are not ported yet."""
+    ``Model`` facade: ``cfg``, a torch ``dtype``, ``cache_bytes``).
+    Attention/MoE stacks are paged; SSM stacks snapshot one fixed-size
+    state tree per block boundary. The hybrid families' snapshots hold
+    RG-LRU states, whose cache is not ported yet: ``cache_bytes`` raises
+    ``NotImplementedError`` for them."""
     cfg = model.cfg
     kinds = set(cfg.attn_layers)
     if kinds <= {"attn", "moe"}:
@@ -83,5 +86,5 @@ def io_spec_for_model(model) -> BlockIOSpec:
         per_tok = (len(cfg.attn_layers) * cfg.num_kv_heads * cfg.head_dim
                    * 2 * itemsize)                       # k + v
         return paged_spec(per_tok)
-    raise NotImplementedError(
-        f"state-snapshot block I/O for {sorted(kinds)} is not ported yet")
+    state_len = 1 if kinds == {"ssm"} else max(cfg.window, 1)
+    return state_spec(model.cache_bytes(1, state_len))

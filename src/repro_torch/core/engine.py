@@ -304,14 +304,18 @@ class EngineStats:
 
 
 class EchoEngine:
-    """With model+params this executes real forwards on the paged runner;
-    with ``model=None`` it is the paper's §5.4 simulator: the same scheduler
-    + KV manager loop, clocked purely by the time model (tokens fabricated
-    per-request deterministically so block hashing stays realistic).
+    """With model+params this executes real forwards: attention stacks on
+    the paged runner, pure-SSM stacks on the state-snapshot runner (the
+    hybrid RG-LRU family is not ported yet and raises
+    ``NotImplementedError``); with ``model=None`` it is the paper's §5.4
+    simulator: the same scheduler + KV manager loop, clocked purely by the
+    time model (tokens fabricated per-request deterministically so block
+    hashing stays realistic).
 
-    ``device`` places the runner's weights and page pool: ``"cuda"`` (the
-    default) launches the Hopper kernels and raises where no card is
-    present; ``"cpu"`` runs their plain PyTorch versions."""
+    ``device`` places the runner's weights and its page pool or live
+    states: ``"cuda"`` (the default) launches the Hopper kernels and raises
+    where no card is present; ``"cpu"`` runs their plain PyTorch
+    versions."""
 
     def __init__(self, model: Optional[Model], params, policy: PolicyConfig, *,
                  num_blocks: int = 256, block_size: int = 16,
@@ -355,17 +359,19 @@ class EchoEngine:
                                    max_running=max_running)
         self.runner = None
         if model is not None:
-            if not set(model.cfg.attn_layers) <= {"attn", "moe"}:
-                raise NotImplementedError(
-                    "the state-snapshot runner (SSM / RG-LRU / hybrid) is "
-                    "not ported yet")
-            # imported here: the runner imports core.block_io, whose
+            # imported here: the runners import core.block_io, whose
             # package imports this module
-            from repro_torch.models.paged import TorchPagedRunner
-            self.runner = TorchPagedRunner(model, params, num_blocks,
-                                           block_size, max_pages_per_seq,
-                                           chunk_size, attn_impl=attn_impl,
-                                           device=device)
+            if set(model.cfg.attn_layers) <= {"attn", "moe"}:
+                from repro_torch.models.paged import TorchPagedRunner
+                self.runner = TorchPagedRunner(model, params, num_blocks,
+                                               block_size, max_pages_per_seq,
+                                               chunk_size, attn_impl=attn_impl,
+                                               device=device)
+            else:
+                from repro_torch.models.state_cache import StateRunner
+                self.runner = StateRunner(model, params, num_blocks,
+                                          block_size, max_pages_per_seq,
+                                          chunk_size, device=device)
         # async swap/compute overlap (wall path): a single-worker copy
         # stream double-buffers payload staging against runner compute, with
         # per-block fences before first touch. Gated on the same switch the

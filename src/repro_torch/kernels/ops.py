@@ -1,8 +1,11 @@
-"""Attention dispatch for the paged runner.
+"""Kernel dispatch: attention for the paged runner, the SSD scan for the
+state runner.
 
 The device of the tensors picks the path, never an option: CPU tensors run
-the plain PyTorch versions (``repro_torch/kernels/ref.py``), CUDA tensors
-launch the Hopper kernels or the call raises. ``impl`` names the schedule:
+the plain PyTorch versions (``repro_torch/kernels/ref.py``, and
+``ssd_chunked`` in ``repro_torch/kernels/ssd_scan.py``), CUDA tensors launch
+the Hopper kernels or the call raises. ``impl`` names the attention
+schedule:
 
 * ``"auto"`` — the split-K decode kernel and the chunked prefill kernel;
 * ``"pallas"`` — the JAX package's legacy serial-page schedule, not ported
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention as _chunked
 from repro_torch.kernels.paged_attention import paged_attention_splitk as _splitk
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 IMPLS = ("auto",)
 
@@ -39,3 +43,12 @@ def chunked_prefill_attention(q, k, v, ctx_len, impl="auto"):
     (Sc,Hq,hd)."""
     check_impl(impl)
     return _chunked(q, k, v, ctx_len)
+
+
+def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
+             return_all_states=False):
+    """SSD chunk scan: x (B,S,H,P) dt-scaled; dt_a (B,S,H); b/c (B,S,N);
+    optional initial_state (B,H,P,N) -> (y, final_state[, states after
+    each chunk]), all float32."""
+    return _ssd(x, dt_a, b_mat, c_mat, chunk=chunk, initial_state=initial_state,
+                return_all_states=return_all_states)

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (and the engine's CPU path).
+"""Plain PyTorch versions of the kernels (and the engine's CPU path).
 
-Each follows ``repro/kernels/ref.py`` operation for operation: scores in the
-input dtype then float32, a ``NEG_INF = -1e30`` mask (not -inf), float32
-softmax, and probabilities cast back to ``q.dtype`` before the PV product.
+Each follows ``repro/kernels/ref.py`` operation for operation. Attention:
+scores in the input dtype then float32, a ``NEG_INF = -1e30`` mask (not
+-inf), float32 softmax, and probabilities cast back to ``q.dtype`` before
+the PV product. The SSD scan: the token-by-token recurrence, the oracle of
+the chunked version in ``repro_torch/kernels/ssd_scan.py``.
 
 ``cuda_calls`` on each function counts calls with CUDA tensors. The serving
 path never makes one (a CUDA tensor goes to the kernel), so a run can check
@@ -82,3 +84,30 @@ def ref_chunked_prefill_attention(q, k, v, ctx_len):
 
 
 ref_chunked_prefill_attention.cuda_calls = 0
+
+
+def ref_ssd_sequential(x, dt_a, b_mat, c_mat, initial_state=None):
+    """Sequential SSD scan oracle.
+
+    x:     (B, S, H, P)  dt-scaled inputs
+    dt_a:  (B, S, H)     A*dt (negative)
+    b/c:   (B, S, N)
+    initial_state: optional (B, H, P, N) state before the first token
+    Returns (y (B,S,H,P), final_state (B,H,P,N)). fp32 math.
+    """
+    if x.is_cuda:
+        ref_ssd_sequential.cuda_calls += 1
+    bs, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    x, dt_a, b_mat, c_mat = (t.float() for t in (x, dt_a, b_mat, c_mat))
+    state = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        state = (state * torch.exp(dt_a[:, t])[..., None, None]
+                 + x[:, t, :, :, None] * b_mat[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_mat[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+ref_ssd_sequential.cuda_calls = 0

@@ -86,7 +86,8 @@ class TorchPagedRunner:
         if kinds != {"attn"}:
             raise NotImplementedError(
                 f"the port's paged runner serves dense attention stacks, got "
-                f"{sorted(kinds)}; MoE and the state families are not ported yet")
+                f"{sorted(kinds)}; MoE is not ported yet, and SSM stacks run "
+                f"on StateRunner")
         self.device = resolve_device(device)
         kops.check_impl(attn_impl)
         self.model = model

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
-path's shapes, and the engine's tokens on the card against the CPU.
+paths' shapes, and the engine's tokens on the card against the CPU, for an
+attention model and for a mamba2 model.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 where only PyTorch is installed:
@@ -17,6 +18,7 @@ from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType  # noqa: E
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_splitk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.params import tree_map  # noqa: E402
 
@@ -42,6 +44,13 @@ CHUNKED_CASES = [
     (100, 420, 4, 1, 32, 250), (65, 131, 8, 2, 32, 66), (7, 16, 4, 4, 16, 9),
     (64, 192, 8, 8, 32, 128),
     (64, 512, 32, 8, 128, 0), (64, 512, 32, 8, 128, 448),           # qwen3-4b
+]
+
+# (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
+# at batch 1 (the serve's spans are S 64 and 128)
+SSD_CASES = [
+    (2, 64, 2, 8, 4, 16), (1, 128, 4, 16, 8, 32), (3, 32, 1, 4, 16, 16),
+    (1, 64, 64, 64, 128, 64), (1, 128, 64, 64, 128, 64), (1, 512, 64, 64, 128, 64),
 ]
 
 
@@ -138,5 +147,90 @@ def test_engine_tokens_on_card_equal_cpu(cuda):
     assert paged_attention_splitk.launches > launches[0]
     assert chunked_prefill_attention.launches > launches[1]
     got_swap, eng = _tokens(model, gpu_params, cuda, swap=True)
+    assert eng.bm.metrics.swapped_in_tokens > 0
+    assert got_swap == want
+
+
+def ssd_inputs(rng, case, dev, slow=False, with_init=False):
+    """x, dt_a, B, C and an optional initial state; ``slow`` makes dt_a
+    about -0.01 softplus(.), so the carried and initial state dominate y."""
+    b, s, h, p, n, _ = case
+    x = _randn(rng, (b, s, h, p), torch.float32, dev)
+    dta = -(0.01 if slow else 1.0) * torch.nn.functional.softplus(
+        _randn(rng, (b, s, h), torch.float32, dev))
+    bm = _randn(rng, (b, s, n), torch.float32, dev)
+    cm = _randn(rng, (b, s, n), torch.float32, dev)
+    init = _randn(rng, (b, h, p, n), torch.float32, dev) if with_init else None
+    return x, dta, bm, cm, init
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["decay", "slow-decay"])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero-init", "init"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, case, with_init, slow):
+    rng = np.random.default_rng(case[1] + case[3] + 2 * with_init + slow)
+    x, dta, bm, cm, init = ssd_inputs(rng, case, cuda, slow, with_init)
+    chunk = case[-1]
+    launches = ssd_scan.launches
+    got = ssd_scan(x, dta, bm, cm, chunk=chunk, initial_state=init,
+                   return_all_states=True)
+    want = ssd_chunked(x, dta, bm, cm, chunk, initial_state=init,
+                       return_all_states=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+        _assert_rel_close(g, w, torch.float32)
+    y, fs = ssd_scan(x, dta, bm, cm, chunk=chunk, initial_state=init)
+    assert torch.equal(y, got[0]) and torch.equal(fs, got[1])
+
+
+def tiny_mamba2():
+    return ModelConfig(name="tiny-mamba2", family="ssm", source="test",
+                       num_layers=2, d_model=64, vocab_size=128, ssm_state=16,
+                       ssm_head_dim=16, ssm_chunk=16, tie_embeddings=True,
+                       dtype="float32")
+
+
+def _state_tokens(model, params, device, swap):
+    """tests/test_state_tiering.py's workload on a tight pool: a shared
+    document, pooled questions and an online burst."""
+    bs = model.cfg.ssm_chunk
+    eng = EchoEngine(model, params, ECHO, num_blocks=8, block_size=bs,
+                     chunk_size=2 * bs, max_pages_per_seq=16, max_running=2,
+                     host_kv_blocks=32 if swap else 0, device=device)
+    rng = np.random.default_rng(3)
+    vocab = model.cfg.vocab_size
+
+    def toks(n):
+        return tuple(int(x) for x in rng.integers(0, vocab, n))
+    doc = toks(3 * bs)
+    reqs = [Request(prompt=doc + toks(7), max_new_tokens=4,
+                    task_type=TaskType.OFFLINE) for _ in range(6)]
+    reqs += [Request(prompt=toks(3 * bs), max_new_tokens=4, task_type=TaskType.ONLINE,
+                     arrival_time=0.0004 * (i + 1), slo=SLO(30.0, 5.0))
+             for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_iters=2000)
+    assert all(r.done for r in reqs)
+    return [r.output_tokens for r in reqs], eng
+
+
+def test_state_engine_tokens_on_card_equal_cpu(cuda):
+    model = Model(tiny_mamba2())
+    params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    want, _ = _state_tokens(model, params, "cpu", swap=False)
+    launches, plain = ssd_scan.launches, ssd_chunked.cuda_calls
+    got, eng = _state_tokens(model, gpu_params, cuda, swap=False)
+    assert got == want
+    assert ssd_scan.launches - launches == 2 * eng.runner.span_calls > 0
+    assert ssd_chunked.cuda_calls == plain
+    assert eng.bm.metrics.hit_blocks > 0
+    got_swap, eng = _state_tokens(model, gpu_params, cuda, swap=True)
+    assert eng.bm.metrics.swapped_out_tokens > 0
     assert eng.bm.metrics.swapped_in_tokens > 0
     assert got_swap == want

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -110,6 +111,7 @@ def no_plain(monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
     monkeypatch.setattr(pa_mod, "ref_paged_attention", trip)
     monkeypatch.setattr(cp_mod, "ref_chunked_prefill_attention", trip)
+    monkeypatch.setattr(ssd_mod, "ssd_chunked", trip)
     return calls
 
 
@@ -138,7 +140,23 @@ def test_cuda_tensor_without_kernel_raises(fake_cuda, no_plain, no_toolchain):
     k = torch.empty((24, 2, 32), device="cuda")
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.chunked_prefill_attention(q, k, k, 3)
+    x = torch.empty((1, 64, 4, 16), device="cuda")
+    dta = torch.empty((1, 64, 4), device="cuda")
+    bm = torch.empty((1, 64, 8), device="cuda")
+    init = torch.empty((1, 4, 16, 8), device="cuda")
+    for kw in ({}, dict(initial_state=init, return_all_states=True)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ops.ssd_scan(x, dta, bm, bm, chunk=16, **kw)
     assert no_plain == []
+
+
+def test_ssd_dispatch_has_no_plain_route():
+    """``ops.ssd_scan`` names no schedule: nothing but the device picks the
+    path, so no argument can send a CUDA tensor to the plain version."""
+    import inspect
+    params = set(inspect.signature(ops.ssd_scan).parameters)
+    assert params == {"x", "dt_a", "b_mat", "c_mat", "chunk", "initial_state",
+                      "return_all_states"}
 
 
 @pytest.mark.parametrize("impl,exc", [("pallas", NotImplementedError),
@@ -163,6 +181,18 @@ def test_non_cpu_non_cuda_device_raises():
         pa_mod.paged_attention_splitk(q, q, q, q, q)
     with pytest.raises(ValueError):
         cp_mod.chunked_prefill_attention(q, q, q, 0)
+    with pytest.raises(ValueError):
+        ssd_mod.ssd_scan(q[None], q, q, q, chunk=4)
+
+
+def test_port_module_list_covers_the_state_path():
+    """The import-hygiene tests walk every module of the port, the state
+    path's included."""
+    names = _module_names()
+    for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+                "repro_torch.models.state_cache",
+                "repro_torch.configs.mamba2_1_3b"):
+        assert mod in names
 
 
 def test_chip_smoke_fails_without_card():
