@@ -7,20 +7,22 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name and power limit;
-  2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+  2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc for sm_90a, one process per source, all started together (seconds,
      and ptxas' registers / shared memory / spills);
-  3. attention kernels against their plain PyTorch versions on the card, at
-     the main path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16)
-     and on the cases of tests/test_kernels.py;
+  3. attention kernels (split-K and legacy serial-page decode, chunked
+     prefill) against their plain PyTorch versions on the card, at the main
+     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16) and on
+     the cases of tests/test_kernels.py, garbage pages included;
   4. attention kernel time beside its bound, the plain version's time and
      ``scaled_dot_product_attention``'s (a yardstick the port never calls);
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
-     through the kernels only;
+     through the kernels only; then the same mix with ``attn_impl="pallas"``,
+     whose decode goes through the legacy kernel only;
   6. token parity of a tiny float32 attention model between the CPU (plain
      versions) and the card (kernels), and again on the card with host-tier
-     swap;
+     swap; and CPU against card with the legacy decode schedule;
   7. the SSD chunk-scan kernel against its plain chunked version in float32:
      the cases of tests/test_kernels.py and mamba2-1.3b's shape (B 1, H 64,
      P 64, N 128, chunk 64, S 64 / 128 / 512), each from a zero and a random
@@ -34,13 +36,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prefix reuse happens on the card; then a profile of one span and one
      decode step;
  10. token parity of a tiny float32 mamba2 between the CPU, the card, and the
-     card with host-tier swap of state snapshots.
+     card with host-tier swap of state snapshots;
+ 11. the RG-LRU scan kernel against its plain version: the cases of
+     tests/test_kernels.py in float32, and the hybrid path's shapes (B 1
+     and 4, W 4096, S 1 / 37 / 128 / 2085 / 3072, a from the model's gate) from
+     float32 and bfloat16 inputs;
+ 12. RG-LRU kernel time at B 1, W 4096, S 128 and 3072 beside its bound and
+     the plain version's time (no single PyTorch call computes it);
+ 13. serve full-width recurrentgemma-9b (38 layers, bf16, seeded random
+     weights) through ``EchoEngine`` and the state-snapshot runner, token by
+     token as the JAX runner does: every request finishes, snapshot prefix
+     reuse happens on the card;
+ 14. its dense path at full width in bf16: ``Model.prefill`` (26 RG-LRU
+     kernel launches a call) of the serve's prompt and of 3072 tokens (the
+     blockwise attention branch), ``pad_cache`` onto the window ring and
+     decode steps; held against the prompt stepped token by token and
+     against a float32 copy of the model (in float32 to 1e-4; in bf16 to
+     limits set from the rounding both paths show); then a profile of a
+     prefill and of engine decode steps, one of them storing a
+     block-boundary snapshot;
+ 15. token parity of a tiny float32 hybrid (5 layers, window 8) between the
+     CPU, the card, the card with host-tier swap, and the card's dense path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,9 +81,12 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType, TimeModel  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention_splitk  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention, paged_attention_splitk)
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.state_cache import StateRunner  # noqa: E402
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -78,6 +104,9 @@ HQ, HKV, HD, BS, MAX_PAGES, CHUNK, NUM_BLOCKS = 32, 8, 128, 16, 32, 64, 2048
 # snapshot per block
 M_BLOCK, M_CHUNK, M_BLOCKS = 64, 128, 64
 SSD_H, SSD_P, SSD_N = 64, 64, 128
+# recurrentgemma-9b through the state runner (token by token; one 25.2 MiB
+# host snapshot per block) and its dense path; W is the LRU width
+R_BLOCK, R_CHUNK, R_BLOCKS, R_LAYERS_RGLRU, W = 32, 64, 64, 26, 4096
 DEV = "cuda"
 
 
@@ -183,7 +212,8 @@ def phase_build():
 
 def phase_kernels(gen):
     phase("3 kernels vs plain versions")
-    errs = {"paged_attention_splitk": 0.0, "chunked_prefill_attention": 0.0}
+    errs = {"paged_attention_splitk": 0.0, "paged_attention": 0.0,
+            "chunked_prefill_attention": 0.0}
     # main-path decode: ragged contexts up to the table with one full row,
     # then the serve's own shape (contexts near 100); one padded row each
     for b, lo, hi in ((1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS),
@@ -196,9 +226,14 @@ def phase_kernels(gen):
         ins = decode_inputs(gen, b, HQ, HKV, HD, BS, MAX_PAGES, ctx,
                             torch.bfloat16, NUM_BLOCKS)
         live = ins[4] > 0
-        e = compare(f"decode bf16 B={b} ctx {lo}..{hi}", paged_attention_splitk(*ins),
-                    ref.ref_paged_attention(*ins), TOL["decode"][torch.bfloat16], live)
-        errs["paged_attention_splitk"] = max(errs["paged_attention_splitk"], e)
+        want = ref.ref_paged_attention(*ins)
+        for name, fn in (("paged_attention_splitk", paged_attention_splitk),
+                         ("paged_attention", paged_attention)):
+            got = fn(*ins)
+            check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
+            e = compare(f"{name} bf16 B={b} ctx {lo}..{hi}", got, want,
+                        TOL["decode"][torch.bfloat16], live)
+            errs[name] = max(errs[name], e)
     for ctx in (0, 37, 448):
         ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, HKV, HD, torch.bfloat16)
         e = compare(f"prefill bf16 Sc=64 T=512 ctx={ctx}",
@@ -222,13 +257,43 @@ def phase_kernels(gen):
                         f"bs={bs} splits={splits}",
                         paged_attention_splitk(*ins, num_splits=splits), want,
                         TOL["decode"][dtype])
+            e = compare(f"legacy decode {str(dtype)[6:]} b={b} hq={hq} hkv={hkv} "
+                        f"hd={hd} bs={bs}", paged_attention(*ins), want,
+                        TOL["decode"][dtype])
+            errs["paged_attention"] = max(errs["paged_attention"], e)
         for sc, t, hq, hkv, hd, ctx in chunked_cases:
             ins = prefill_inputs(gen, sc, t, hq, hkv, hd, dtype)
             compare(f"prefill {str(dtype)[6:]} sc={sc} t={t} hq={hq} hkv={hkv} "
                     f"hd={hd} ctx={ctx}", chunked_prefill_attention(*ins, ctx),
                     ref.ref_chunked_prefill_attention(*ins, ctx), TOL["prefill"][dtype])
+    _garbage_pages(gen)
     torch.cuda.synchronize()
     return errs
+
+
+def _garbage_pages(gen):
+    """tests/test_kernels.py's garbage-pages case, on both decode kernels:
+    pages the table does not reference, and for the legacy kernel a table
+    entry past the context pointing far outside the pool, change nothing."""
+    b, hq, hkv, hd, bs, p = 1, 2, 1, 16, 8, 6
+    q = torch.randn((b, hq, hd), generator=gen, device=DEV)
+    kp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV)
+    vp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV)
+    bt = torch.tensor([[1, 3]], dtype=torch.int32, device=DEV)
+    cl = torch.tensor([12], dtype=torch.int32, device=DEV)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0], kp2[2], vp2[4] = 999.0, -999.0, 123.0
+    far = torch.tensor([[1, 3, 1 << 30]], dtype=torch.int32, device=DEV)
+    for name, fn in (("paged_attention_splitk", paged_attention_splitk),
+                     ("paged_attention", paged_attention)):
+        out1, out2 = fn(q, kp, vp, bt, cl), fn(q, kp2, vp2, bt, cl)
+        same = bool(torch.equal(out1, out2))
+        if fn is paged_attention:
+            same &= bool(torch.equal(out1, fn(q, kp, vp, far, cl)))
+        print(f"  {name} garbage pages: output unchanged {same}")
+        check(same, f"{name}: unreferenced pages reached the output")
+        compare(f"{name} garbage-pages case", out1,
+                ref.ref_paged_attention(q, kp, vp, bt, cl), TOL["decode"][torch.float32])
 
 
 def _sdpa_decode(q, kp, vp, bt, cl):
@@ -243,10 +308,10 @@ def _sdpa_decode(q, kp, vp, bt, cl):
     return q[:, :, None], k, v, mask[:, None, None]
 
 
-def _decode_row(gen, errs, b, ctx):
+def _decode_rows(gen, errs, b, ctx):
     """Time one decode launch at batch ``b`` with contexts ``ctx``, the
-    main path's table width; also with one split per row, the schedule
-    in which one CTA walks all of a row's live pages."""
+    main path's table width: split-K, split-K with one split per row, and
+    the legacy serial-page kernel, beside one bound and one SDPA time."""
     ins = decode_inputs(gen, b, HQ, HKV, HD, BS, MAX_PAGES, ctx, torch.bfloat16,
                         NUM_BLOCKS)
     item = 2
@@ -255,19 +320,25 @@ def _decode_row(gen, errs, b, ctx):
               + live_pages * 4 + b * 4)
     flops = 4 * sum(ctx) * HQ * HD
     sq, sk, sv, smask = _sdpa_decode(*ins)
-    return dict(
-        name="paged_attention_splitk", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention_splitk.cu",
-        replaces="src/repro/kernels/paged_attention.py:164",
-        shape=f"B={b} Hq={HQ} Hkv={HKV} hd={HD} bs={BS} nblk={MAX_PAGES} "
-              f"sum(ctx)={sum(ctx)} bf16",
-        ms=time_ms(lambda: paged_attention_splitk(*ins)),
-        one_split_ms=time_ms(lambda: paged_attention_splitk(*ins, num_splits=1)),
+    shape = (f"B={b} Hq={HQ} Hkv={HKV} hd={HD} bs={BS} nblk={MAX_PAGES} "
+             f"sum(ctx)={sum(ctx)} bf16")
+    common = dict(
+        route="cuda", shape=shape,
         plain_ms=time_ms(lambda: ref.ref_paged_attention(*ins)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=smask, enable_gqa=True)),
-        bound=bound(nbytes, flops, torch.bfloat16),
-        max_abs_err=errs["paged_attention_splitk"])
+        bound=bound(nbytes, flops, torch.bfloat16))
+    return [dict(common, name="paged_attention_splitk",
+                 source="src/repro_torch/kernels/csrc/paged_attention_splitk.cu",
+                 replaces="src/repro/kernels/paged_attention.py:164",
+                 ms=time_ms(lambda: paged_attention_splitk(*ins)),
+                 one_split_ms=time_ms(lambda: paged_attention_splitk(*ins, num_splits=1)),
+                 max_abs_err=errs["paged_attention_splitk"]),
+            dict(common, name="paged_attention",
+                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
+                 replaces="src/repro/kernels/paged_attention.py:78",
+                 ms=time_ms(lambda: paged_attention(*ins)),
+                 max_abs_err=errs["paged_attention"])]
 
 
 def phase_timing(gen, errs):
@@ -276,10 +347,10 @@ def phase_timing(gen, errs):
     phase("4 kernel time")
     # decode as the serve runs it (batch 8, contexts near 100), then a
     # full batch of 32 with ragged contexts up to the table
-    rows = [_decode_row(gen, errs, 8, torch.randint(
-                80, 121, (8,), generator=gen, device=DEV).tolist()),
-            _decode_row(gen, errs, 32, torch.randint(
-                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())]
+    rows = (_decode_rows(gen, errs, 8, torch.randint(
+                80, 121, (8,), generator=gen, device=DEV).tolist())
+            + _decode_rows(gen, errs, 32, torch.randint(
+                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist()))
     # prefill: one engine chunk against the longest prefix of the table
     item = 2
     sc, t, c = CHUNK, MAX_PAGES * BS, 448
@@ -358,6 +429,7 @@ def _attention_steps(runner):
 
 def _reset_counts():
     paged_attention_splitk.launches = 0
+    paged_attention.launches = 0
     chunked_prefill_attention.launches = 0
     ref.ref_paged_attention.cuda_calls = 0
     ref.ref_chunked_prefill_attention.cuda_calls = 0
@@ -373,9 +445,54 @@ def phase_serve():
     print(f"init: {cfg.num_layers} layers d={cfg.d_model} vocab={cfg.vocab_size} "
           f"{cfg.dtype}, {cfg.param_count / 1e9:.2f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
+    online, offline, eng, stats, wall = _serve_qwen(model, params, "auto")
+    launches = {"paged_attention_splitk": paged_attention_splitk.launches,
+                "chunked_prefill_attention": chunked_prefill_attention.launches}
+    check(min(launches.values()) > 0, "a kernel of the path never launched")
+
+    ttft = [r.ttft() for r in online]
+    tpot = [r.tpot() for r in online]
+    out_tokens = sum(r.n_output for r in online + offline)
+    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
+          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
+    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
+          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
+    print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
+          f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile_steps(_attention_steps(eng.runner),
+                   ("splitk_", "chunked_prefill_kernel"), "attention kernels")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the same mix through the legacy serial-page decode kernel
+    print("serve again with attn_impl='pallas' (legacy decode schedule)")
+    on2, off2, eng, _, wall = _serve_qwen(model, params, "pallas")
+    check(paged_attention_splitk.launches == 0,
+          "the split-K kernel launched in the legacy-schedule serve")
+    launches["paged_attention"] = paged_attention.launches
+    pairs = [(a, b) for r1, r2 in zip(online + offline, on2 + off2)
+             for a, b in zip(r1.output_tokens, r2.output_tokens)]
+    print(f"  {wall:.3f} s wall; online TTFT s mean "
+          f"{np.mean([r.ttft() for r in on2]):.4f}, TPOT s mean "
+          f"{np.mean([r.tpot() for r in on2]):.4f}; output tokens equal to the "
+          f"split-K serve's: {sum(a == b for a, b in pairs)} of {len(pairs)} "
+          f"({sum(a == b for a, b in pairs) / len(pairs):.1%})")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_qwen(model, params, attn_impl):
+    """Phase 5's mix through an engine with ``attn_impl``: every request
+    finishes with its tokens, every decode step and prefill chunk launches
+    its kernel once a layer, and no plain attention runs on the card.
+    Returns (online, offline, engine, stats, wall seconds)."""
+    cfg = model.cfg
     eng = EchoEngine(model, params, ECHO, num_blocks=NUM_BLOCKS, block_size=BS,
                      chunk_size=CHUNK, max_pages_per_seq=MAX_PAGES,
-                     time_model=TimeModel.h100(), clock="wall", device=DEV)
+                     time_model=TimeModel.h100(), clock="wall", device=DEV,
+                     attn_impl=attn_impl)
     # warm the libraries (cuBLAS handles, kernel modules) on free pages
     eng.runner.prefill_chunk(list(range(CHUNK)), 0, [0, 1, 2, 3])
     eng.runner.decode([1], [[0, 1, 2, 3, 4]], [CHUNK])
@@ -403,7 +520,8 @@ def phase_serve():
     stats = eng.run(max_iters=5000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention_splitk": paged_attention_splitk.launches,
+    decode = paged_attention if attn_impl == "pallas" else paged_attention_splitk
+    launches = {"decode": decode.launches,
                 "chunked_prefill_attention": chunked_prefill_attention.launches}
     plain_calls = (ref.ref_paged_attention.cuda_calls
                    + ref.ref_chunked_prefill_attention.cuda_calls)
@@ -414,36 +532,22 @@ def phase_serve():
         check(all(0 <= t < vocab for t in r.output_tokens), "token outside the vocabulary")
     n_chunks = sum(rec.n_prefill for rec in stats.iterations)
     n_decode_steps = sum(1 for rec in stats.iterations if rec.n_decode)
-    print(f"launches {launches}, prefill chunks {n_chunks}, decode steps "
-          f"{n_decode_steps}, plain attention calls on CUDA {plain_calls}")
+    print(f"launches {{{decode.__name__!r}: {launches['decode']}, "
+          f"'chunked_prefill_attention': {launches['chunked_prefill_attention']}}}, "
+          f"prefill chunks {n_chunks}, decode steps {n_decode_steps}, plain "
+          f"attention calls on CUDA {plain_calls}")
     check(launches["chunked_prefill_attention"] == cfg.num_layers * n_chunks,
           "prefill kernel launches != layers x chunks")
-    check(launches["paged_attention_splitk"] == cfg.num_layers * n_decode_steps,
+    check(launches["decode"] == cfg.num_layers * n_decode_steps,
           "decode kernel launches != layers x decode steps")
-    check(min(launches.values()) > 0, "a kernel of the path never launched")
     check(plain_calls == 0, "the plain attention ran on CUDA tensors in the serve")
-
-    ttft = [r.ttft() for r in online]
-    tpot = [r.tpot() for r in online]
-    out_tokens = sum(r.n_output for r in online + offline)
-    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
-          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
-    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
-          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
-    print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
-          f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
-    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile_steps(_attention_steps(eng.runner),
-                   ("splitk_", "chunked_prefill_kernel"), "attention kernels")
-    del eng, params
-    torch.cuda.empty_cache()
-    return launches
+    return online, offline, eng, stats, wall
 
 
-def _tiny_engine_tokens(model, params, device, swap):
+def _tiny_engine_tokens(model, params, device, swap, attn_impl="auto"):
     kw = (dict(num_blocks=16, host_kv_blocks=32) if swap else dict(num_blocks=64))
     eng = EchoEngine(model, params, ECHO, block_size=8, chunk_size=16,
-                     max_pages_per_seq=16, device=device, **kw)
+                     max_pages_per_seq=16, device=device, attn_impl=attn_impl, **kw)
     rng = np.random.default_rng(2)
     vocab = model.cfg.vocab_size
     off = Request(prompt=tuple(int(x) for x in rng.integers(0, vocab, 56)),
@@ -489,6 +593,16 @@ def phase_parity():
     check(paged_attention_splitk.launches > 0 and chunked_prefill_attention.launches > 0,
           "the CUDA engine did not launch both kernels")
     print(f"  tokens equal on CPU, CUDA and CUDA+swap: {cpu_tokens}")
+    splitk = paged_attention_splitk.launches
+    cpu_legacy, _ = _tiny_engine_tokens(model, params, "cpu", swap=False,
+                                        attn_impl="pallas")
+    gpu_legacy, _ = _tiny_engine_tokens(model, cuda_params, DEV, swap=False,
+                                        attn_impl="pallas")
+    check(cpu_legacy == gpu_legacy, f"legacy schedule: CPU {cpu_legacy} != CUDA "
+          f"{gpu_legacy}")
+    check(paged_attention.launches > 0 and paged_attention_splitk.launches == splitk,
+          "the legacy-schedule engine did not decode through the legacy kernel only")
+    print(f"  legacy schedule: tokens equal on CPU and CUDA: {cpu_legacy}")
 
 
 # ------------------------------------------------------------------ SSD scan
@@ -703,6 +817,324 @@ def phase_parity_mamba():
     print(f"  tokens equal on CPU, CUDA and CUDA+swap: {cpu_tokens}")
 
 
+# ------------------------------------------------------------------ RG-LRU
+def rglru_inputs(gen, b, s, w, dtype=torch.float32, gate=True):
+    """a, b (B,S,W). ``gate``: a as the model's gate makes it,
+    exp(-8 softplus(2) r) with r in (0, 1); else sigmoid of a normal draw
+    (tests/test_kernels.py's)."""
+    if gate:
+        r = torch.rand((b, s, w), generator=gen, device=DEV)
+        a = torch.exp(-8.0 * F.softplus(torch.tensor(2.0, device=DEV)) * r)
+    else:
+        a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=DEV))
+    bb = torch.randn((b, s, w), generator=gen, device=DEV)
+    return a.to(dtype), bb.to(dtype)
+
+
+def phase_rglru_kernel(gen):
+    phase("11 RG-LRU kernel vs plain version")
+    err = 0.0
+    # (b, s, w, gate, tol): tests/test_kernels.py's sweep in float32, then
+    # the hybrid path's shapes from both input types; S covers one chunk,
+    # whole and ragged chunk counts, and the 32-chunk cap (S > 2048)
+    cases = [(2, 64, 32, False, 2e-5), (1, 128, 64, False, 2e-5),
+             (3, 32, 16, False, 2e-5)]
+    cases += [(b, s, W, True, 1e-4) for b in (1, 4) for s in (1, 37, 128, 2085, 3072)]
+    for b, s, w, gate, tol in cases:
+        for dtype in ((torch.float32,) if not gate else (torch.float32, torch.bfloat16)):
+            a, bb = rglru_inputs(gen, b, s, w, dtype, gate)
+            got = rglru_scan(a, bb)
+            want = ref.ref_rglru_scan(a, bb)
+            check(got.shape == want.shape and got.dtype == torch.float32,
+                  f"rglru b={b} s={s} w={w}: shape {tuple(got.shape)} {got.dtype}")
+            e = float((got - want).abs().max())
+            rel = float(torch.linalg.vector_norm(got - want)
+                        / torch.linalg.vector_norm(want))
+            ok = bool(torch.allclose(got, want, rtol=tol, atol=tol)) and rel < 1e-5
+            print(f"  rglru b={b} s={s} w={w} {str(dtype)[6:]} "
+                  f"{'gate' if gate else 'sigmoid'}: max_abs_err={e:.3e} tol={tol:g} "
+                  f"rel_err={rel:.3e} rel_tol=1e-05 {'ok' if ok else 'MISMATCH'}")
+            check(ok, "the RG-LRU kernel disagrees with its plain version")
+            err = max(err, e)
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_rglru_timing(gen, err):
+    """The RG-LRU scan as ``Model.prefill`` runs it: float32 a and b from
+    the gates, batch 1, the LRU width; a short and a long prompt."""
+    phase("12 RG-LRU kernel time")
+    rows = []
+    for s in (128, 3072):
+        a, bb = rglru_inputs(gen, 1, s, W)
+        nbytes = 3 * 4 * s * W                     # a, b in; h out; float32
+        t_bound, by = bound(nbytes, 2 * s * W, torch.float32)
+        rows.append(dict(
+            name="rglru_scan", route="cuda",
+            source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:41",
+            shape=f"B=1 S={s} W={W} f32",
+            ms=time_ms(lambda: rglru_scan(a, bb)),
+            plain_ms=time_ms(lambda: ref.ref_rglru_scan(a, bb), iters=10, warmup=1),
+            library_ms=None, bound_ms=t_bound, bound_by=by, max_abs_err=err))
+        r = rows[-1]
+        print(f"  rglru_scan [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
+              f"{t_bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB), plain "
+              f"{r['plain_ms']:.4f} ms, library none (no single PyTorch call "
+              f"computes a linear recurrence)")
+    return rows
+
+
+def _reset_rglru_counts():
+    rglru_scan.launches = 0
+    ref.ref_rglru_scan.cuda_calls = 0
+
+
+def phase_serve_hybrid():
+    """Returns the model, its weights, the engine and the longer online
+    prompt, which phase 14 runs through the dense path."""
+    phase("13 serve recurrentgemma-9b at full width")
+    cfg = get_config("recurrentgemma-9b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"init: {cfg.num_layers} layers ({R_LAYERS_RGLRU} rglru) d={cfg.d_model} "
+          f"W={W} window={cfg.window} vocab={cfg.vocab_size} {cfg.dtype}, "
+          f"{sum(t.numel() for t in tree_leaves(params)):,} params, one state "
+          f"{model.cache_bytes(1, cfg.window):,} B, in {time.perf_counter() - t0:.1f} s")
+    eng = EchoEngine(model, params, ECHO, num_blocks=R_BLOCKS, block_size=R_BLOCK,
+                     chunk_size=R_CHUNK, max_pages_per_seq=16,
+                     time_model=TimeModel.h100(), clock="wall", device=DEV)
+    runner = eng.runner
+    # warm the libraries on a spare block id (stale pool slots are harmless)
+    runner.prefill_chunk([1, 2], 0, [R_BLOCKS - 1], rid=-1)
+    runner.decode([3], [[R_BLOCKS - 1]], [2], rids=[-1])
+    runner.release(-1)
+    runner.pool.clear()
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+
+    def toks(n):
+        return tuple(int(x) for x in rng.integers(0, vocab, n))
+    online = [Request(prompt=toks(n), max_new_tokens=8, task_type=TaskType.ONLINE,
+                      arrival_time=at, slo=SLO(ttft=30.0, tpot=2.0))
+              for n, at in ((64, 0.0), (96, 0.2))]
+    offline = []
+    for _ in range(2):
+        doc = toks(64)
+        offline += [Request(prompt=doc + toks(16), max_new_tokens=8,
+                            task_type=TaskType.OFFLINE) for _ in range(2)]
+    for r in online + offline:
+        eng.submit(r)
+
+    _reset_rglru_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = eng.run(max_iters=5000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in online + offline:
+        check(r.done and r.n_output == r.max_new_tokens,
+              f"request {r.rid} finished {r.n_output}/{r.max_new_tokens} tokens")
+        check(all(0 <= t < vocab for t in r.output_tokens), "token outside the vocabulary")
+    m = eng.bm.metrics
+    prompt_tokens = sum(len(r.prompt) for r in online + offline)
+    print(f"hit blocks {m.hit_blocks} of {m.lookup_blocks} looked up; "
+          f"{prompt_tokens} prompt tokens; rglru launches {rglru_scan.launches} (the "
+          f"engine steps every token through decode_step, as the JAX runner does); "
+          f"plain RG-LRU calls on CUDA {ref.ref_rglru_scan.cuda_calls}")
+    check(m.hit_blocks > 0, "no snapshot prefix reuse in the serve")
+    check(ref.ref_rglru_scan.cuda_calls == 0, "the plain RG-LRU scan ran on CUDA")
+
+    ttft = [r.ttft() for r in online]
+    tpot = [r.tpot() for r in online]
+    out_tokens = sum(r.n_output for r in online + offline)
+    pool_bytes = sum(t.numel() * t.element_size() for e in runner.pool.values()
+                     for t in tree_leaves(e) if t.device.type == "cpu")
+    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
+          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
+    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
+          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
+    print(f"  output tokens {out_tokens}, {out_tokens / wall:.2f} tok/s")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"snapshot pool {len(runner.pool)} snapshots, {pool_bytes:,} B "
+          f"({pool_bytes / 2**30:.2f} GiB) on the host")
+    return model, params, eng, online[1].prompt
+
+
+def _both_paths(model, params, prompt):
+    """Last-position logits of ``prompt`` from ``Model.prefill`` (checked to
+    launch the RG-LRU kernel once a layer) and from a fresh state runner
+    stepping it token by token through ``decode_step``, float32."""
+    before = rglru_scan.launches
+    last, _ = model.prefill(params, torch.tensor([prompt], device=DEV))
+    n = rglru_scan.launches - before
+    check(n == R_LAYERS_RGLRU, f"Model.prefill launched the RG-LRU kernel {n} times")
+    runner = StateRunner(model, params, R_BLOCKS, R_BLOCK, 16, R_CHUNK, device=DEV)
+    nb = -(-len(prompt) // R_BLOCK)
+    step = runner.prefill_chunk(list(prompt), 0, list(range(nb)), rid=0)
+    return last[0].float(), torch.from_numpy(step).to(DEV)
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_dense_hybrid(model, params, eng, prompt):
+    """Returns the RG-LRU launches of the main path's bf16 ``Model.prefill``
+    calls; the float32 copy that checks them runs after the count is read."""
+    phase("14 dense path of recurrentgemma-9b at full width")
+    cfg = model.cfg
+    s = 3072
+    toks = torch.randint(0, cfg.vocab_size, (1, s),
+                         generator=torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV)
+    _reset_rglru_counts()
+    with torch.inference_mode():
+        # the main path in bf16: the serve's prompt both ways, a prompt
+        # that takes the blockwise attention branch, pad_cache, decode
+        pre16, step16 = _both_paths(model, params, prompt)
+        before = rglru_scan.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long16, cache = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        n = rglru_scan.launches - before
+        print(f"  prefill S={s} (blockwise attention, window {cfg.window}): "
+              f"{t_prefill * 1e3:.1f} ms wall, {n} RG-LRU launches, logits finite "
+              f"{bool(torch.isfinite(long16).all())}")
+        check(n == R_LAYERS_RGLRU, f"Model.prefill S={s} made {n} RG-LRU launches")
+        check(bool(torch.isfinite(long16).all()), "non-finite prefill logits")
+        cache = model.pad_cache(cache, s, s + 9)
+        ring = tree_leaves(cache[0][2])[0]
+        check(ring.shape[2] == cfg.window, f"ring of {ring.shape[2]} slots")
+        cur = torch.argmax(long16, dim=-1)
+        finite = True
+        for pos in range(s, s + 8):
+            lg, cache = model.decode_step(params, cur, cache,
+                                          torch.tensor([pos], device=DEV))
+            finite &= bool(torch.isfinite(lg).all())
+            cur = torch.argmax(lg, dim=-1)
+        print(f"  pad_cache onto the {cfg.window}-slot ring, 8 decode steps: "
+              f"logits finite {finite}")
+        check(finite, "non-finite decode logits after pad_cache")
+        del cache
+        launches = rglru_scan.launches
+        check(ref.ref_rglru_scan.cuda_calls == 0, "the plain RG-LRU scan ran on CUDA")
+
+        # the check: a float32 copy (the bf16 weights upcast, exactly) runs
+        # both prompts; its launches are not the main path's
+        model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+        params32 = tree_map(lambda t: t.float(), params)
+        pre32, step32 = _both_paths(model32, params32, prompt)
+        long32, _ = model32.prefill(params32, toks)
+        long32 = long32[0].float()
+        del model32, params32
+        torch.cuda.empty_cache()
+    rel32 = _rel(pre32, step32)
+    print(f"  prefill S={len(prompt)} vs token by token, float32 (bf16 weights "
+          f"upcast): last-position logits rel_err={rel32:.3e} (limit 1e-4), "
+          f"argmax agree {int(torch.argmax(pre32)) == int(torch.argmax(step32))}")
+    check(rel32 < 1e-4, "Model.prefill disagrees with the token-by-token path")
+    # bf16 rounds at other places on each path, and each lands about as
+    # far from float32 (5.7-5.9e-2 at S 96 and S 3072 on the card), so a
+    # bf16 prefill must stay within 1.2x of the bf16 token-by-token path's
+    # own distance to float32
+    d_pre, d_step = _rel(pre16, step32), _rel(step16, step32)
+    print(f"  the same in bf16: rel_err={_rel(pre16, step16):.3e}, argmax agree "
+          f"{int(torch.argmax(pre16)) == int(torch.argmax(step16))}; distance to "
+          f"the float32 token-by-token logits: prefill {d_pre:.3e}, token by "
+          f"token {d_step:.3e} (limit: prefill <= 1.2 x token by token)")
+    check(d_pre <= 1.2 * d_step, "bf16 Model.prefill strays from float32")
+    d_long = _rel(long16[0].float(), long32)
+    print(f"  prefill S={s} bf16 vs the float32 copy: last-position logits "
+          f"rel_err={d_long:.3e} (limit 1.2 x {d_step:.3e}), argmax agree "
+          f"{int(torch.argmax(long16)) == int(torch.argmax(long32))}")
+    check(d_long <= 1.2 * d_step, f"bf16 Model.prefill S={s} strays from float32")
+
+    toks128 = torch.arange(128, device=DEV)[None]
+    spare = list(range(R_BLOCKS - 4, R_BLOCKS))
+
+    def prefill128():
+        with torch.inference_mode():
+            return model.prefill(params, toks128)
+    _profile_steps({
+        "Model.prefill S=128": prefill128,
+        "engine decode step, one request at pos 64": lambda: eng.runner.decode(
+            [1], [spare], [64], rids=[-1]),
+        "the same at pos 63, storing a block-boundary snapshot":
+            lambda: eng.runner.decode([1], [spare], [R_BLOCK * 2 - 1], rids=[-1]),
+    }, ("rglru_scan_kernel",), "RG-LRU kernel")
+    return launches
+
+
+def phase_parity_hybrid():
+    phase("15 CPU vs CUDA token parity (tiny float32 hybrid)")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              num_layers=5, window=8)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    cuda_params = tree_map(lambda t: t.to(DEV), params)
+    bs = 16
+
+    def run(p, device, swap):
+        """tests/test_state_tiering.py's workload on a tight pool."""
+        eng = EchoEngine(model, p, ECHO, num_blocks=8, block_size=bs,
+                         chunk_size=2 * bs, max_pages_per_seq=16, max_running=2,
+                         host_kv_blocks=32 if swap else 0, device=device)
+        rng = np.random.default_rng(3)
+
+        def toks(n):
+            return tuple(int(x) for x in rng.integers(0, cfg.vocab_size, n))
+        doc = toks(3 * bs)
+        reqs = [Request(prompt=doc + toks(7), max_new_tokens=4,
+                        task_type=TaskType.OFFLINE) for _ in range(6)]
+        reqs += [Request(prompt=toks(3 * bs), max_new_tokens=4,
+                         task_type=TaskType.ONLINE, arrival_time=0.0004 * (i + 1),
+                         slo=SLO(30.0, 5.0)) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_iters=2000)
+        check(all(r.done for r in reqs), f"tiny hybrid on {device} left requests unfinished")
+        return reqs, eng
+
+    reqs, _ = run(params, "cpu", swap=False)
+    cpu_tokens = [r.output_tokens for r in reqs]
+    gpu, eng = run(cuda_params, DEV, swap=False)
+    check(cpu_tokens == [r.output_tokens for r in gpu], "CPU != CUDA tokens")
+    swap, eng = run(cuda_params, DEV, swap=True)
+    m = eng.bm.metrics
+    print(f"  hit blocks {m.hit_blocks}; swap run: swapped out {m.swapped_out_tokens} "
+          f"/ in {m.swapped_in_tokens} tokens ({m.swapped_out_bytes} / "
+          f"{m.swapped_in_bytes} bytes)")
+    check(m.swapped_out_tokens > 0 and m.swapped_in_tokens > 0,
+          "the host tier never swapped a snapshot")
+    check(cpu_tokens == [r.output_tokens for r in swap], "CPU != CUDA+swap tokens")
+
+    _reset_rglru_counts()
+    dense = []
+    with torch.inference_mode():
+        for r in reqs:
+            n = len(r.prompt)
+            last, cache = model.prefill(cuda_params, torch.tensor([r.prompt], device=DEV))
+            cache = model.pad_cache(cache, n, n + r.max_new_tokens + 1)
+            out = [int(torch.argmax(last[0]))]
+            for pos in range(n, n + r.max_new_tokens - 1):
+                lg, cache = model.decode_step(cuda_params,
+                                              torch.tensor([out[-1]], device=DEV),
+                                              cache, torch.tensor([pos], device=DEV))
+                out.append(int(torch.argmax(lg[0])))
+            dense.append(out)
+    check(rglru_scan.launches == 4 * len(reqs) and ref.ref_rglru_scan.cuda_calls == 0,
+          "the dense path did not run every RG-LRU layer through the kernel")
+    check(cpu_tokens == dense, f"CPU {cpu_tokens} != CUDA dense path {dense}")
+    print(f"  tokens equal on CPU, CUDA, CUDA+swap and the CUDA dense path: {cpu_tokens}")
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -715,6 +1147,13 @@ def main():
     rows.append(phase_ssd_timing(gen, ssd_err))
     launches["ssd_scan"] = phase_serve_mamba()
     phase_parity_mamba()
+    rglru_err = phase_rglru_kernel(gen)
+    rows += phase_rglru_timing(gen, rglru_err)
+    model, params, eng, prompt = phase_serve_hybrid()
+    launches["rglru_scan"] = phase_dense_hybrid(model, params, eng, prompt)
+    del model, params, eng
+    torch.cuda.empty_cache()
+    phase_parity_hybrid()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

@@ -1,7 +1,9 @@
 """Architecture config registry (``--arch <id>``) of the PyTorch port.
 
-Only the architectures whose whole serving path is ported are registered;
-the JAX package's registry lists the rest.
+Only the architectures whose whole serving path is ported are registered:
+one of each family the port serves (dense attention, pure SSM, the hybrid
+RG-LRU family). The MoE and multimodal architectures of the JAX package's
+registry are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_MODULES)

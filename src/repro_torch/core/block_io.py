@@ -75,10 +75,10 @@ def state_spec(block_bytes: int, *, restore_last_only: bool = True) -> BlockIOSp
 def io_spec_for_model(model) -> BlockIOSpec:
     """Derive the byte spec from a model's architecture (duck-typed on the
     ``Model`` facade: ``cfg``, a torch ``dtype``, ``cache_bytes``).
-    Attention/MoE stacks are paged; SSM stacks snapshot one fixed-size
-    state tree per block boundary. The hybrid families' snapshots hold
-    RG-LRU states, whose cache is not ported yet: ``cache_bytes`` raises
-    ``NotImplementedError`` for them."""
+    Attention/MoE stacks are paged; SSM and hybrid stacks snapshot one
+    fixed-size state tree per block boundary: for the hybrid RG-LRU family
+    its RG-LRU states and local-attention window rings, sized without
+    allocating."""
     cfg = model.cfg
     kinds = set(cfg.attn_layers)
     if kinds <= {"attn", "moe"}:

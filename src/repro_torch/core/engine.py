@@ -305,9 +305,8 @@ class EngineStats:
 
 class EchoEngine:
     """With model+params this executes real forwards: attention stacks on
-    the paged runner, pure-SSM stacks on the state-snapshot runner (the
-    hybrid RG-LRU family is not ported yet and raises
-    ``NotImplementedError``); with ``model=None`` it is the paper's §5.4
+    the paged runner, pure-SSM and hybrid RG-LRU stacks on the
+    state-snapshot runner; with ``model=None`` it is the paper's §5.4
     simulator: the same scheduler + KV manager loop, clocked purely by the
     time model (tokens fabricated per-request deterministically so block
     hashing stays realistic).

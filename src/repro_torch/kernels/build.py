@@ -4,7 +4,8 @@ Each source ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library at first use and loaded
 with ``ctypes``. Libraries land in ``build/repro_torch/`` at the repository
 root (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+flags (and of the shared headers ``csrc/*.cuh``), so an edited source
+rebuilds and an unchanged one loads at once.
 Every source is compiled by one ``nvcc`` process, all started together.
 Nothing here runs at import time, and a failed build raises.
 """
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_attention_splitk", "chunked_prefill", "ssd_scan")
+SOURCES = ("paged_attention_splitk", "paged_attention", "chunked_prefill",
+           "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,7 +48,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the key covers the headers too: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

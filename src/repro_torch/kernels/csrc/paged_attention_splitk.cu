@@ -18,7 +18,9 @@
 //     split instead of landing in the first one;
 //   * each K/V page is loaded once into shared memory for all G query rows;
 //   * scores, the float32 online softmax (m, l) and the accumulator stay in
-//     shared memory and registers; only the unnormalised partial
+//     shared memory and registers (the page walk of
+//     paged_attention_common.cuh, shared with the legacy kernel
+//     paged_attention.cu); only the unnormalised partial
 //     (acc, m, l) of each split goes to device memory, in float32;
 //   * a second small launch merges the splits by log-sum-exp, divides once
 //     by max(l, 1e-20) and casts. A split without live pages contributes
@@ -29,29 +31,13 @@
 // Simple first version: float32 FMA from shared memory; wgmma, TMA and
 // warp specialisation are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "paged_attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxG = 8;     // query rows per kv head
-constexpr int kMaxBs = 16;   // tokens per page
-constexpr float kNegInf = -1e30f;
-
-// four consecutive elements as float (16-byte aligned for float32, 8-byte
-// for bfloat16: a bfloat16 is the top half of the float32 with its bits)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+using paged::acc_len;
+using paged::kNegInf;
+using paged::kThreads;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -63,106 +49,30 @@ splitk_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                       float* __restrict__ m_part,   // (B, Hkv, nsplit, G)
                       float* __restrict__ l_part,   // (B, Hkv, nsplit, G)
                       int hq, int hkv, int bs, int nblk, float scale) {
-  constexpr int kRow = HD + 4;                      // keeps float4 rows aligned
-  constexpr int kAcc = (kMaxG * HD + kThreads - 1) / kThreads;
-  __shared__ __align__(16) float qs[kMaxG][kRow];
-  __shared__ __align__(16) float ks[kMaxBs][kRow];
-  __shared__ __align__(16) float vs[kMaxBs][HD];
-  __shared__ __align__(16) float ps[kMaxG][kMaxBs];
-  __shared__ float alpha_s[kMaxG];
-
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x;
   const int g_size = hq / hkv;
   const int tid = threadIdx.x;
   const int ctx = ctx_lens[b];
 
-  for (int e = tid * 4; e < g_size * HD; e += kThreads * 4) {
-    const int g = e / HD, d = e % HD;
-    *reinterpret_cast<float4*>(&qs[g][d]) =
-        load4(q + ((size_t)b * hq + (size_t)h * g_size + g) * HD + d);
-  }
-
-  // score owner: bs consecutive lanes hold one query row, lane t its key t;
-  // bs divides 32, so a row's lanes share a warp and reduce by shuffles
-  const int gi = tid / bs, t = tid % bs;
-  const bool owner = gi < g_size;
-  float m = kNegInf, l = 0.f;                       // identical across the row's lanes
-  float acc[kAcc];
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-
   // this row's live pages, in equal shares of consecutive pages per split
   const int live = min(nblk, (max(ctx, 0) + bs - 1) / bs);
   const int share = (live + nsplit - 1) / nsplit;
   const int first = split * share;
-  const int live_end = min(first + share, live);
-  const size_t page_stride = (size_t)bs * hkv * HD;
-  for (int i = first; i < live_end; ++i) {
-    const size_t base = (size_t)block_tables[(size_t)b * nblk + i] * page_stride
-                        + (size_t)h * HD;
-    __syncthreads();                                // previous page fully consumed
-    for (int e = tid * 4; e < bs * HD; e += kThreads * 4) {
-      const int tt = e / HD, d = e % HD;
-      const size_t off = base + (size_t)tt * hkv * HD + d;
-      *reinterpret_cast<float4*>(&ks[tt][d]) = load4(k_pages + off);
-      *reinterpret_cast<float4*>(&vs[tt][d]) = load4(v_pages + off);
-    }
-    __syncthreads();
-
-    const bool valid = owner && (i * bs + t < ctx);
-    float s = kNegInf;
-    if (valid) {
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; d += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(&qs[gi][d]);
-        const float4 c = *reinterpret_cast<const float4*>(&ks[t][d]);
-        dot += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
-      }
-      s = dot * scale;
-    }
-    float mx = s;
-    for (int off = bs >> 1; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, bs));
-    const float m_new = fmaxf(m, mx);
-    const float p = valid ? expf(s - m_new) : 0.f;
-    float sum = p;
-    for (int off = bs >> 1; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off, bs);
-    const float alpha = expf(m - m_new);
-    l = alpha * l + sum;
-    m = m_new;
-    if (owner) {
-      ps[gi][t] = p;
-      if (t == 0) alpha_s[gi] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int e = tid + j * kThreads;
-      const int g = e / HD, d = e % HD;
-      if (g < g_size) {
-        float a = acc[j] * alpha_s[g];
-        for (int tt = 0; tt < bs; tt += 4) {
-          const float4 pp = *reinterpret_cast<const float4*>(&ps[g][tt]);
-          a += pp.x * vs[tt][d] + pp.y * vs[tt + 1][d]
-             + pp.z * vs[tt + 2][d] + pp.w * vs[tt + 3][d];
-        }
-        acc[j] = a;
-      }
-    }
-  }
+  float m, l, acc[acc_len<HD>()];
+  paged::attend_pages<T, HD>(q, k_pages, v_pages, block_tables + (size_t)b * nblk,
+                             b, h, hq, hkv, bs, ctx, first,
+                             min(first + share, live), scale, m, l, acc);
 
   const size_t part = ((size_t)b * hkv + h) * nsplit + split;
 #pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
+  for (int j = 0; j < acc_len<HD>(); ++j) {
     const int e = tid + j * kThreads;
     const int g = e / HD, d = e % HD;
     if (g < g_size) o_part[(part * g_size + g) * HD + d] = acc[j];
   }
-  if (owner && t == 0) {
+  const int gi = tid / bs;
+  if (gi < g_size && tid % bs == 0) {
     m_part[part * g_size + gi] = m;
     l_part[part * g_size + gi] = l;
   }
@@ -191,7 +101,7 @@ __global__ void splitk_merge_kernel(const float* __restrict__ o_part,
     l_tot += w * l_part[r];
     o_tot += w * o_part[r * hd + d];
   }
-  store(out + idx, o_tot / fmaxf(l_tot, 1e-20f));
+  paged::store(out + idx, o_tot / fmaxf(l_tot, 1e-20f));
 }
 
 template <typename T, int HD>

@@ -1,15 +1,16 @@
 """Kernel dispatch: attention for the paged runner, the SSD scan for the
-state runner.
+state runner, the RG-LRU scan for the hybrid family's prefill.
 
 The device of the tensors picks the path, never an option: CPU tensors run
 the plain PyTorch versions (``repro_torch/kernels/ref.py``, and
 ``ssd_chunked`` in ``repro_torch/kernels/ssd_scan.py``), CUDA tensors launch
 the Hopper kernels or the call raises. ``impl`` names the attention
-schedule:
+schedule, as in the JAX package:
 
 * ``"auto"`` — the split-K decode kernel and the chunked prefill kernel;
-* ``"pallas"`` — the JAX package's legacy serial-page schedule, not ported
-  yet: raises ``NotImplementedError``.
+* ``"pallas"`` — the legacy serial-page decode kernel, and the same chunked
+  prefill kernel (the JAX package runs its one fused prefill kernel under
+  both names).
 
 There is no value that sends a CUDA tensor to the plain version, and no
 tuning preset: the kernels' launch parameters follow the card they run on.
@@ -17,16 +18,15 @@ tuning preset: the kernels' launch parameters follow the card they run on.
 from __future__ import annotations
 
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention as _chunked
+from repro_torch.kernels.paged_attention import paged_attention as _legacy
 from repro_torch.kernels.paged_attention import paged_attention_splitk as _splitk
+from repro_torch.kernels.rglru_scan import rglru_scan as _rglru
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
-IMPLS = ("auto",)
+IMPLS = ("auto", "pallas")
 
 
 def check_impl(impl: str) -> None:
-    if impl == "pallas":
-        raise NotImplementedError(
-            "the legacy serial-page paged-attention schedule is not ported yet")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
 
@@ -35,7 +35,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, impl="auto"):
     """Decode attention: q (B,Hq,hd); k/v_pages (P,bs,Hkv,hd);
     block_tables (B,nblk) int32; ctx_lens (B,) int32 -> (B,Hq,hd)."""
     check_impl(impl)
-    return _splitk(q, k_pages, v_pages, block_tables, ctx_lens)
+    fn = _legacy if impl == "pallas" else _splitk
+    return fn(q, k_pages, v_pages, block_tables, ctx_lens)
 
 
 def chunked_prefill_attention(q, k, v, ctx_len, impl="auto"):
@@ -52,3 +53,9 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
     each chunk]), all float32."""
     return _ssd(x, dt_a, b_mat, c_mat, chunk=chunk, initial_state=initial_state,
                 return_all_states=return_all_states)
+
+
+def rglru_scan(a, b):
+    """RG-LRU recurrence: a, b (B,S,W) -> h (B,S,W) float32, h_t = a_t
+    h_{t-1} + b_t from zero."""
+    return _rglru(a, b)

@@ -1,14 +1,13 @@
-"""Split-K paged decode attention: the CUDA kernel's wrapper.
+"""Paged decode attention: the wrappers of the two CUDA kernels.
 
-The kernel (``csrc/paged_attention_splitk.cu``) replaces the TPU kernel
-``repro/kernels/paged_attention.py::paged_attention_splitk``; its source
-note says what bounds it on the card (bytes: every live KV row is read
-once) and how the design answers that. Its plain version is
-``ref_paged_attention``: a CPU tensor goes there, a CUDA tensor goes to
-the kernel or the call raises.
-
-The legacy serial-page schedule (``paged_attention`` in the JAX package)
-is not ported yet.
+``paged_attention_splitk`` (``csrc/paged_attention_splitk.cu``) replaces the
+TPU kernel ``repro/kernels/paged_attention.py::paged_attention_splitk``;
+``paged_attention`` (``csrc/paged_attention.cu``) replaces the legacy
+serial-page schedule ``repro/kernels/paged_attention.py::paged_attention``.
+Their source notes say what bounds them on the card (bytes: every live KV
+row is read once) and how each design answers that. Both share one
+contract and one plain version, ``ref_paged_attention``: a CPU tensor goes
+there, a CUDA tensor goes to the kernel or the call raises.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ PAGE_SIZES = (4, 8, 16)
 MAX_GROUP = 8          # query heads per kv head the kernel holds on chip
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_LEGACY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,3 +111,34 @@ def paged_attention_splitk(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 
 paged_attention_splitk.launches = 0
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
+    """The legacy serial-page schedule: q (B,Hq,hd); k/v_pages
+    (P,bs,Hkv,hd); block_tables (B,nblk) int32; ctx_lens (B,) int32 ->
+    (B,Hq,hd) in q's dtype.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel: one
+    CTA per (sequence, kv head) walks the row's live pages in order with
+    one running softmax and normalises at the end. A row with ctx = 0 comes
+    out as zeros."""
+    if q.device.type == "cpu":
+        return ref_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention for device {q.device}")
+    fn = build.kernel_fn("paged_attention", "paged_attention", _LEGACY_ARGTYPES)
+    _check(q, k_pages, v_pages, block_tables, ctx_lens)
+    b, hq, hd = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+             b, hq, hkv, hd, bs, block_tables.shape[1],
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

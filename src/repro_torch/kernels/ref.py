@@ -4,7 +4,8 @@ Each follows ``repro/kernels/ref.py`` operation for operation. Attention:
 scores in the input dtype then float32, a ``NEG_INF = -1e30`` mask (not
 -inf), float32 softmax, and probabilities cast back to ``q.dtype`` before
 the PV product. The SSD scan: the token-by-token recurrence, the oracle of
-the chunked version in ``repro_torch/kernels/ssd_scan.py``.
+the chunked version in ``repro_torch/kernels/ssd_scan.py``. The RG-LRU
+scan: the token-by-token linear recurrence.
 
 ``cuda_calls`` on each function counts calls with CUDA tensors. The serving
 path never makes one (a CUDA tensor goes to the kernel), so a run can check
@@ -84,6 +85,24 @@ def ref_chunked_prefill_attention(q, k, v, ctx_len):
 
 
 ref_chunked_prefill_attention.cuda_calls = 0
+
+
+def ref_rglru_scan(a, b):
+    """Sequential RG-LRU recurrence oracle: h_t = a_t h_{t-1} + b_t.
+
+    a, b: (B, S, W) -> (B, S, W) fp32."""
+    if a.is_cuda:
+        ref_rglru_scan.cuda_calls += 1
+    a, b = a.float(), b.float()
+    h = torch.zeros_like(a[:, 0])
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+ref_rglru_scan.cuda_calls = 0
 
 
 def ref_ssd_sequential(x, dt_a, b_mat, c_mat, initial_state=None):

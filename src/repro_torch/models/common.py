@@ -81,6 +81,14 @@ def apply_rope(x, cos, sin):
     return out.to(dt)
 
 
+def default_positions(batch, seq, mrope=False, offset=0, device="cpu"):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+    pos = pos.expand(batch, seq)
+    if mrope:
+        pos = pos[None].expand(3, batch, seq)
+    return pos
+
+
 # ---------------------------------------------------------------- MLP
 def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype, lead=()):
     """``lead`` prepends a stacked-layer axis."""

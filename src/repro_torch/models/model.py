@@ -1,12 +1,14 @@
-"""Model facade: configuration, dtype, parameter init, one-token decode and
-the recurrent-state cache.
+"""Model facade: configuration, dtype, parameter init, the dense prefill /
+decode path and its caches.
 
 Ported from ``repro/models/model.py``: ``init``, ``_embed``, ``_logits``,
-``decode_step``, and ``make_cache`` / ``cache_bytes`` for "ssm" layers. The
-serving engine runs attention stacks through ``TorchPagedRunner`` and SSM
-stacks through ``StateRunner`` (which calls ``decode_step``). Not ported
-yet: ``forward_train``, ``prefill``, ``pad_cache``, the multimodal
-projection, and the dense caches of "attn", "moe" and "rglru" layers.
+``prefill``, ``decode_step``, and ``make_cache`` / ``pad_cache`` /
+``cache_bytes`` for "attn" (the ring of ``attn_cache_len`` slots), "ssm"
+and "rglru" layers. The serving engine runs attention stacks through
+``TorchPagedRunner`` and state stacks (SSM and the hybrid RG-LRU family)
+through ``StateRunner``, which calls ``decode_step``. Not ported yet:
+``forward_train``, the multimodal projection and "moe" blocks (their cache
+entry is the attention ring, as in JAX, but the block raises).
 """
 from __future__ import annotations
 
@@ -14,10 +16,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import (dtype_of, embed_init, resolve_device,
-                                       rms_norm, rope_angles)
+from repro_torch.models.common import (default_positions, dtype_of, embed_init,
+                                       resolve_device, rms_norm, rope_angles)
+from repro_torch.models.rglru import rglru_width
 from repro_torch.models.ssm import ssm_dims
-from repro_torch.params import tree_leaves
+from repro_torch.params import tree_leaves, tree_map
+
+LONG_THRESHOLD = 1 << 18  # >= 256k context => sliding-window policy kicks in
 
 
 class Model:
@@ -61,7 +66,31 @@ class Model:
         return rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.mrope_sections)
 
+    def _positions(self, batch, seq, positions, device="cpu"):
+        if positions is not None:
+            return positions
+        return default_positions(batch, seq, mrope=bool(self.cfg.mrope_sections),
+                                 device=device)
+
     # ------------------------------------------------------------- modes
+    def prefill(self, params, tokens, seq_lens=None, positions=None):
+        """tokens (B,S) -> (last_logits (B,V), cache). ``seq_lens`` (B,)
+        masks right padding and picks each row's last real position."""
+        if self.cfg.multimodal:
+            raise NotImplementedError("the multimodal projection is not ported yet")
+        b, s = tokens.shape
+        rope = self._rope(self._positions(b, s, positions, device=tokens.device))
+        h = self._embed(params, tokens)
+        h, caches = tfm.stack_context(params["layers"], self.cfg, h, rope,
+                                      seq_lens=seq_lens, return_cache=True)
+        if seq_lens is not None:
+            idx = torch.clamp(seq_lens.long() - 1, min=0)
+            h_last = torch.take_along_dim(h, idx[:, None, None], dim=1)[:, 0]
+        else:
+            h_last = h[:, -1]
+        logits = self._logits(params, h_last[:, None])[:, 0]
+        return logits, caches
+
     def decode_step(self, params, tokens, caches, pos):
         """tokens (B,) int, pos (B,) int -> (logits (B,V), new caches). The
         caches given are not written: the new ones are new tensors."""
@@ -76,18 +105,31 @@ class Model:
         return self._logits(params, h)[:, 0], caches
 
     # ------------------------------------------------------------- caches
+    def attn_cache_len(self, total_len: int) -> int:
+        cfg = self.cfg
+        if cfg.block_pattern:                       # hybrid local attention
+            return min(total_len, cfg.window)
+        if cfg.long_context == "sliding_window" and total_len >= LONG_THRESHOLD:
+            return min(total_len, cfg.sliding_window)
+        return total_len
+
     def _cache_entry(self, kind, batch, total_len, make):
         cfg = self.cfg
+        dt = self.dtype
+        if kind in ("attn", "moe"):
+            s = self.attn_cache_len(total_len)
+            shp = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+            return {"k": make(shp, dt), "v": make(shp, dt)}
         if kind == "ssm":
             d_inner, nheads = ssm_dims(cfg)
             conv_ch = d_inner + 2 * cfg.ssm_state
-            return {"conv": make((batch, cfg.ssm_conv, conv_ch), self.dtype),
+            return {"conv": make((batch, cfg.ssm_conv, conv_ch), dt),
                     "ssd": make((batch, nheads, cfg.ssm_head_dim, cfg.ssm_state),
                                 torch.float32)}
-        if kind in ("attn", "moe", "rglru"):
-            raise NotImplementedError(
-                f"the dense cache of {kind!r} layers is not ported yet (the "
-                "hybrid RG-LRU family is the next slice of the port)")
+        if kind == "rglru":
+            w = rglru_width(cfg)
+            return {"conv": make((batch, cfg.ssm_conv, w), dt),
+                    "h": make((batch, w), torch.float32)}
         raise ValueError(kind)
 
     def make_cache(self, batch, total_len, as_specs=False, device="cuda"):
@@ -105,6 +147,28 @@ class Model:
             caches.append(tuple(self._cache_entry(k, batch, total_len, make)
                                 for k in unit))
         return caches
+
+    def pad_cache(self, caches, prefill_len, total_len):
+        """Convert a prefill cache (seq len = prefill_len) into a decode cache
+        sized for ``total_len`` positions, preserving ring-slot semantics.
+        Attention entries are new tensors; the others pass through."""
+        target = self.attn_cache_len(total_len)
+
+        def remap(arr):
+            s_p = arr.shape[-3]
+            if s_p <= target:
+                return torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, target - s_p))
+            # window ring: keep last `target` keys at slots pos % target
+            positions = torch.arange(s_p - target, s_p, device=arr.device)
+            out = arr.new_zeros(arr.shape[:-3] + (target,) + arr.shape[-2:])
+            out[..., positions % target, :, :] = arr[..., positions, :, :]
+            return out
+
+        out = []
+        for (stype, unit, n), seg in zip(tfm.segments(self.cfg), caches):
+            out.append(tuple(tree_map(remap, e) if k in ("attn", "moe") else e
+                             for e, k in zip(seg, unit)))
+        return out
 
     def cache_bytes(self, batch, total_len) -> int:
         specs = self.make_cache(batch, total_len, as_specs=True)

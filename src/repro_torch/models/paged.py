@@ -86,8 +86,8 @@ class TorchPagedRunner:
         if kinds != {"attn"}:
             raise NotImplementedError(
                 f"the port's paged runner serves dense attention stacks, got "
-                f"{sorted(kinds)}; MoE is not ported yet, and SSM stacks run "
-                f"on StateRunner")
+                f"{sorted(kinds)}; MoE is not ported yet, and SSM and hybrid "
+                f"stacks run on StateRunner")
         self.device = resolve_device(device)
         kops.check_impl(attn_impl)
         self.model = model

@@ -1,15 +1,13 @@
-"""State-snapshot serving path for attention-free (SSM) models.
+"""State-snapshot serving path for recurrent-state models: pure SSM
+(mamba2) and the hybrid RG-LRU family (recurrentgemma).
 
 The port of ``repro/models/state_cache.py``. Echo's prefix caching adapted
 to recurrent state: instead of paged KV, the cache pool stores the
-recurrent state snapshot *after every block_size tokens* (block_size ==
-cfg.ssm_chunk, so SSD chunk boundaries line up with BlockManager blocks). A
-prefix hit resumes from the snapshot of the last cached block; eviction
-priorities / threshold / RC apply to snapshot slots exactly as to KV blocks
-— the BlockManager is unchanged.
-
-The hybrid family (RG-LRU states plus a local-attention window ring) is not
-ported yet; it is the next slice.
+recurrent state snapshot *after every block_size tokens* (for pure SSM
+block_size == cfg.ssm_chunk, so SSD chunk boundaries line up with
+BlockManager blocks). A prefix hit resumes from the snapshot of the last
+cached block; eviction priorities / threshold / RC apply to snapshot slots
+exactly as to KV blocks — the BlockManager is unchanged.
 """
 from __future__ import annotations
 
@@ -31,17 +29,23 @@ def _host(tree):
 
 
 class StateRunner:
-    """Engine runner for pure-SSM configs (mamba2). The snapshot pool is a
-    host-side dict bid -> state tree, of CPU tensors except the entries a
-    swap-in restored on the device (slots are overwritten when the
-    BlockManager reuses a block id, so stale entries are harmless); the
-    live states, one per running request, stay on the runner's device.
+    """Engine runner for recurrent-state configs: pure SSM (mamba2) and
+    hybrid (recurrentgemma — RG-LRU states + *bounded* local-attention
+    window rings of ``max(cfg.window, 1)`` slots; the full snapshot stays
+    fixed-size, so block-boundary snapshotting works identically). The
+    snapshot pool is a host-side dict bid -> state tree, of CPU tensors
+    except the entries a swap-in restored on the device (slots are
+    overwritten when the BlockManager reuses a block id, so stale entries
+    are harmless); the live states, one per running request, stay on the
+    runner's device.
 
-    A prefill chunk's whole blocks run through the span function: every
-    layer's SSD chunk scan (the CUDA kernel on the card) from the resumed
-    state, with the state captured at each block boundary. The chunk's
-    ragged tail and decode step one request at a time through
-    ``Model.decode_step``, as the JAX runner does.
+    Pure SSM: a prefill chunk's whole blocks run through the span function:
+    every layer's SSD chunk scan (the CUDA kernel on the card) from the
+    resumed state, with the state captured at each block boundary. The
+    chunk's ragged tail and decode step one request at a time through
+    ``Model.decode_step``, as the JAX runner does. Hybrid: as in JAX, no
+    span function; every prefill and decode token steps through
+    ``Model.decode_step``, with a snapshot at each block boundary.
 
     State updates are functional, as in JAX: every step builds new state
     tensors and nothing writes into a state in place. So a live state, a
@@ -53,11 +57,10 @@ class StateRunner:
                  max_pages_per_seq: int, chunk_size: int, device="cuda"):
         cfg = model.cfg
         kinds = set(cfg.attn_layers)
-        if kinds != {"ssm"}:
-            raise NotImplementedError(
-                f"the port's StateRunner serves pure-SSM stacks, got "
-                f"{sorted(kinds)}; the hybrid RG-LRU family is the next slice")
-        if block_size != cfg.ssm_chunk:
+        if not kinds <= {"ssm", "rglru", "attn"}:
+            raise NotImplementedError("StateRunner: ssm/hybrid families only")
+        self._pure_ssm = kinds == {"ssm"}
+        if self._pure_ssm and block_size != cfg.ssm_chunk:
             raise ValueError("block_size must equal ssm_chunk so snapshots "
                              "align with blocks")
         if chunk_size % block_size:
@@ -66,6 +69,8 @@ class StateRunner:
         self.model = model
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.block_size = block_size
+        # hybrid: the attention ring must cover the local window
+        self._state_len = 1 if self._pure_ssm else max(cfg.window, 1)
         self.io = io_spec_for_model(model)   # state: fixed-size snapshots
         self.pool: Dict[int, object] = {}       # bid -> state tree
         self.live: Dict[int, object] = {}       # rid -> state tree (device)
@@ -76,15 +81,16 @@ class StateRunner:
         # the boundary-snapshot resume when the positions agree
         self._live_pos: Dict[int, int] = {}     # rid -> tokens consumed
         self.span_calls = 0
-        # per-layer views of the stacked weights: a pure-SSM config is one
-        # scan segment of ssm blocks
-        (blocks,) = self.params["layers"][0]
-        self._layers = [tree_map(lambda a, i=i: a[i], blocks)
-                        for i in range(cfg.num_layers)]
+        if self._pure_ssm:
+            # per-layer views of the stacked weights for the span: a
+            # pure-SSM config is one scan segment of ssm blocks
+            (blocks,) = self.params["layers"][0]
+            self._layers = [tree_map(lambda a, i=i: a[i], blocks)
+                            for i in range(cfg.num_layers)]
 
     # ------------------------------------------------------------- states
     def _zeros_state(self):
-        return self.model.make_cache(1, 1, device=self.device)
+        return self.model.make_cache(1, self._state_len, device=self.device)
 
     def _span(self, tokens: Sequence[int], state):
         """Consume ``len(tokens)`` (block-aligned) tokens from ``state``.
@@ -139,7 +145,7 @@ class StateRunner:
             state = self._zeros_state()
 
         toks = list(token_chunk)
-        full = len(toks) // bs * bs
+        full = (len(toks) // bs * bs) if self._pure_ssm else 0
         logits = None
         if full:
             logits, state, boundaries = self._span(toks[:full], state)

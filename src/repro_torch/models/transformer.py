@@ -1,23 +1,28 @@
 """Decoder-stack layout: segments, per-family block parameters, and the
-decode walk over the stack.
+context and decode walks over the stack.
 
 Layers are grouped into *segments* exactly as in ``repro/models/transformer.py``:
 a homogeneous (or pattern-repeating) run whose parameters are stacked on a
-leading layer axis, plus an optional unrolled remainder. The paged runner
-walks the attention stack itself (``repro_torch/models/paged.py``), and the
-state runner walks the SSM stack in prefill
-(``repro_torch/models/state_cache.py``). ``stack_decode`` is ported for
-"ssm" blocks; the dense-cache attention blocks (``attn_decode``), "moe",
-"rglru" and ``stack_context`` are not ported yet.
+leading layer axis, plus an optional unrolled remainder (e.g.
+recurrentgemma's 38 = 12 x (rglru, rglru, attn) + 2 x rglru). A scan
+segment may hold no layer at all (recurrentgemma reduced to 2 layers is an
+empty scan segment plus the unrolled pair). The paged runner walks the
+attention stack itself (``repro_torch/models/paged.py``), and the state
+runner walks the SSM stack in prefill (``repro_torch/models/state_cache.py``).
+``stack_context`` and ``stack_decode`` serve "attn", "ssm" and "rglru"
+blocks; "moe" blocks are not ported yet (ROADMAP queue: MoE).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import rms_norm, swiglu_init
+from repro_torch.models.common import rms_norm, swiglu, swiglu_init
 from repro_torch.params import tree_map
+
+_MOE = "'moe' blocks are not ported yet (ROADMAP queue: MoE)"
 
 
 # ----------------------------------------------------------------- segments
@@ -49,21 +54,84 @@ def block_init(kind, gen: torch.Generator, cfg, dtype, lead=()):
     if kind == "ssm":
         return {"ln": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
                 "ssm": ssm_mod.ssm_init(gen, cfg, dtype, lead)}
-    if kind in ("moe", "rglru"):
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet")
+    if kind == "rglru":
+        ones = dict(dtype=dtype, device=gen.device)
+        return {"ln1": torch.ones(lead + (d,), **ones),
+                "rglru": rglru_mod.rglru_init(gen, cfg, dtype, lead),
+                "ln2": torch.ones(lead + (d,), **ones),
+                "mlp": swiglu_init(gen, d, cfg.d_ff, dtype, lead)}
+    if kind == "moe":
+        raise NotImplementedError(_MOE)
+    raise ValueError(kind)
+
+
+def _attn_window(cfg):
+    return cfg.window if cfg.block_pattern else 0
+
+
+def block_context(kind, p, cfg, x, rope, *, seq_lens=None, return_cache=False):
+    """One block over a whole sequence: x (B,S,d) -> (x, cache or None)."""
+    cos, sin = rope
+    if kind == "attn":
+        h, cache = attn_mod.attn_context(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin,
+            window=_attn_window(cfg), seq_lens=seq_lens, return_cache=return_cache)
+        x = x + h
+        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+    if kind == "ssm":
+        h, cache = ssm_mod.ssm_context(
+            p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps),
+            return_cache=return_cache)
+        return x + h, cache
+    if kind == "rglru":
+        h, cache = rglru_mod.rglru_context(
+            p["rglru"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+            return_cache=return_cache)
+        x = x + h
+        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+    if kind == "moe":
+        raise NotImplementedError(_MOE)
     raise ValueError(kind)
 
 
 def block_decode(kind, p, cfg, x, rope, cache, pos):
     """One block on one token per row: x (B,1,d) -> (x, new cache)."""
+    cos, sin = rope
+    if kind == "attn":
+        h, cache = attn_mod.attn_decode(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin, cache, pos)
+        x = x + h
+        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
     if kind == "ssm":
         h, cache = ssm_mod.ssm_decode(p["ssm"], cfg,
                                       rms_norm(x, p["ln"], cfg.norm_eps), cache)
         return x + h, cache
-    if kind in ("attn", "moe", "rglru"):
-        raise NotImplementedError(
-            f"dense-cache decode of {kind!r} blocks is not ported yet")
+    if kind == "rglru":
+        h, cache = rglru_mod.rglru_decode(
+            p["rglru"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cache)
+        x = x + h
+        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+    if kind == "moe":
+        raise NotImplementedError(_MOE)
     raise ValueError(kind)
+
+
+def _empty_context_cache(kind, cfg, x):
+    """The cache of an empty scan segment (n = 0): JAX's ``lax.scan`` over
+    no layers still returns every cache leaf, with a layer axis of length
+    0. The shapes are those ``block_context`` returns."""
+    b, s, _ = x.shape
+
+    def empty(shape, dtype=x.dtype):
+        return x.new_zeros((0,) + shape, dtype=dtype)
+    if kind == "attn":
+        shp = (b, s, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": empty(shp), "v": empty(shp)}
+    if kind == "rglru":
+        w = rglru_mod.rglru_width(cfg)
+        return {"conv": empty((b, cfg.ssm_conv, w)),
+                "h": empty((b, w), torch.float32)}
+    raise ValueError(f"no empty scan segment of {kind!r} blocks")
 
 
 # ----------------------------------------------------------------- stacks
@@ -87,13 +155,42 @@ def stack_layers(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def stack_context(params_segs, cfg, x, rope, *, seq_lens=None,
+                  return_cache=False):
+    """Apply all layers in context mode. Returns (x, caches or None); scan
+    segments stack their layers' caches on a leading axis."""
+    caches = []
+    for (stype, unit, n), seg_p in zip(segments(cfg), params_segs):
+        outs = [[] for _ in unit]
+        for i in range(n if stype == "scan" else 1):
+            for j, (kind, p_k) in enumerate(zip(unit, seg_p)):
+                if stype == "scan":
+                    p_k = tree_map(lambda a: a[i], p_k)
+                x, c = block_context(kind, p_k, cfg, x, rope, seq_lens=seq_lens,
+                                     return_cache=return_cache)
+                outs[j].append(c)
+        if not return_cache:
+            seg_cache = None
+        elif stype == "unroll":
+            seg_cache = tuple(o[0] for o in outs)
+        elif n == 0:
+            seg_cache = tuple(_empty_context_cache(kind, cfg, x) for kind in unit)
+        else:
+            seg_cache = tuple(stack_layers(o) for o in outs)
+        caches.append(seg_cache)
+    return x, (caches if return_cache else None)
+
+
 def stack_decode(params_segs, cfg, x, rope, caches, pos):
     """Apply all layers to one token per row. Scan segments walk their
     stacked layers in a Python loop (JAX's ``lax.scan``) and return their
-    caches stacked anew: nothing is written in place."""
+    caches stacked anew: nothing is written in place. An empty scan
+    segment passes its (empty) caches through."""
     new_caches = []
     for (stype, unit, n), seg_p, seg_c in zip(segments(cfg), params_segs, caches):
-        if stype == "scan":
+        if stype == "scan" and n == 0:
+            seg_new = seg_c
+        elif stype == "scan":
             outs = [[] for _ in unit]
             for i in range(n):
                 for j, (kind, p_k, c_k) in enumerate(zip(unit, seg_p, seg_c)):

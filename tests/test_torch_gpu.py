@@ -1,23 +1,29 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
 paths' shapes, and the engine's tokens on the card against the CPU, for an
-attention model and for a mamba2 model.
+attention model (both decode schedules), a mamba2 model and a hybrid
+RG-LRU model.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention_splitk  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention, paged_attention_splitk)
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.params import tree_map  # noqa: E402
@@ -113,10 +119,101 @@ def test_chunked_kernel_matches_plain(cuda, dtype, case):
     _assert_rel_close(got, want, dtype)
 
 
-def _tokens(model, params, device, swap):
+def _paged_inputs(case, dtype, dev):
+    b, hq, hkv, hd, bs, nblk, ctx = case
+    rng = np.random.default_rng(b * 7 + hq)
+    p = nblk * b + 2
+    q = _randn(rng, (b, hq, hd), dtype, dev)
+    kp = _randn(rng, (p, bs, hkv, hd), dtype, dev)
+    vp = _randn(rng, (p, bs, hkv, hd), dtype, dev)
+    bt = torch.from_numpy(rng.integers(0, p, (b, nblk)).astype(np.int32)).to(dev)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, cl
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", PAGED_DECODE_CASES)
+def test_legacy_paged_kernel_matches_plain(cuda, dtype, case):
+    q, kp, vp, bt, cl = _paged_inputs(case, dtype, cuda)
+    launches = paged_attention.launches
+    got = paged_attention(q, kp, vp, bt, cl)
+    want = ref.ref_paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == launches + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    live = cl > 0                       # ctx = 0: kernel zeros, plain uniform mean
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got[live].float(), want[live].float(), rtol=tol, atol=tol)
+    _assert_rel_close(got[live], want[live], dtype)
+
+
+def test_legacy_paged_kernel_ignores_garbage_pages(cuda):
+    """tests/test_kernels.py's case: pages the table does not reference,
+    and table entries past the context, never reach the output."""
+    rng = np.random.default_rng(9)
+    b, hq, hkv, hd, bs, p = 1, 2, 1, 16, 8, 6
+    q = _randn(rng, (b, hq, hd), torch.float32, cuda)
+    kp = _randn(rng, (p, bs, hkv, hd), torch.float32, cuda)
+    vp = _randn(rng, (p, bs, hkv, hd), torch.float32, cuda)
+    bt = torch.tensor([[1, 3]], dtype=torch.int32, device=cuda)
+    cl = torch.tensor([12], dtype=torch.int32, device=cuda)
+    out1 = paged_attention(q, kp, vp, bt, cl)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0], kp2[2], vp2[4] = 999.0, -999.0, 123.0
+    out2 = paged_attention(q, kp2, vp2, bt, cl)
+    # a table entry past ctx pointing far outside the pool is never read
+    bt3 = torch.tensor([[1, 3, 1 << 30]], dtype=torch.int32, device=cuda)
+    out3 = paged_attention(q, kp, vp, bt3, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(out1, out3)
+    torch.testing.assert_close(out1, ref.ref_paged_attention(q, kp, vp, bt, cl),
+                               rtol=2e-4, atol=2e-4)
+
+
+def rglru_inputs(rng, b, s, w, dtype, dev, gate):
+    """a, b (B,S,W). ``gate``: a as the model's gate makes it,
+    exp(-8 softplus(2) r) with r in (0, 1); else sigmoid of a normal draw
+    (tests/test_kernels.py's)."""
+    if gate:
+        r = rng.uniform(0.0, 1.0, (b, s, w))
+        a = np.exp(-8.0 * np.log1p(np.exp(2.0)) * r)
+    else:
+        a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, w))))
+    bb = rng.standard_normal((b, s, w))
+    return (torch.from_numpy(x.astype(np.float32)).to(dev, dtype) for x in (a, bb))
+
+
+# (b, s, w, gate, tol): tests/test_kernels.py's sweep, then the hybrid
+# path's shapes (W 4096, the prefill lengths of chip_smoke.py); S covers one
+# chunk, whole and ragged chunk counts, and the 32-chunk cap (S > 2048)
+RGLRU_CASES = [(2, 64, 32, False, 2e-5), (1, 128, 64, False, 2e-5),
+               (3, 32, 16, False, 2e-5)]
+RGLRU_CASES += [(b, s, 4096, True, 1e-4) for b in (1, 4)
+                for s in (1, 37, 128, 2085, 3072)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_kernel_matches_plain(cuda, case, dtype):
+    b, s, w, gate, tol = case
+    rng = np.random.default_rng(s + w + b)
+    a, bb = rglru_inputs(rng, b, s, w, dtype, cuda, gate)
+    launches = rglru_scan.launches
+    got = rglru_scan(a, bb)
+    want = ref.ref_rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == launches + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+    assert rel < 1e-5, f"relative error {float(rel):.3e}"
+
+
+def _tokens(model, params, device, swap, attn_impl="auto"):
     kw = dict(num_blocks=16, host_kv_blocks=32) if swap else dict(num_blocks=64)
     eng = EchoEngine(model, params, ECHO, block_size=8, chunk_size=16,
-                     max_pages_per_seq=16, device=device, **kw)
+                     max_pages_per_seq=16, device=device, attn_impl=attn_impl, **kw)
     rng = np.random.default_rng(2)
     off = Request(prompt=tuple(int(x) for x in rng.integers(0, 128, 56)),
                   max_new_tokens=6, task_type=TaskType.OFFLINE)
@@ -149,6 +246,23 @@ def test_engine_tokens_on_card_equal_cpu(cuda):
     got_swap, eng = _tokens(model, gpu_params, cuda, swap=True)
     assert eng.bm.metrics.swapped_in_tokens > 0
     assert got_swap == want
+
+
+def test_legacy_engine_tokens_on_card_equal_cpu(cuda):
+    """``attn_impl="pallas"``: decode goes through the legacy kernel only."""
+    cfg = ModelConfig(name="tiny-dense", family="dense", source="test",
+                      num_layers=2, d_model=64, vocab_size=128, num_heads=4,
+                      num_kv_heads=2, head_dim=16, d_ff=128, dtype="float32",
+                      rope_theta=10_000.0)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    want, _ = _tokens(model, params, "cpu", swap=False, attn_impl="pallas")
+    launches = paged_attention.launches, paged_attention_splitk.launches
+    got, _ = _tokens(model, gpu_params, cuda, swap=False, attn_impl="pallas")
+    assert got == want
+    assert paged_attention.launches > launches[0]
+    assert paged_attention_splitk.launches == launches[1]
 
 
 def ssd_inputs(rng, case, dev, slow=False, with_init=False):
@@ -234,3 +348,55 @@ def test_state_engine_tokens_on_card_equal_cpu(cuda):
     assert eng.bm.metrics.swapped_out_tokens > 0
     assert eng.bm.metrics.swapped_in_tokens > 0
     assert got_swap == want
+
+
+def tiny_hybrid():
+    """recurrentgemma reduced to 5 layers with a window of 8: one scanned
+    (rglru, rglru, attn) unit and the unrolled (rglru, rglru)."""
+    return dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                               num_layers=5, window=8)
+
+
+def test_hybrid_engine_tokens_on_card_equal_cpu(cuda):
+    """The hybrid state engine (token by token through decode_step) gives
+    the CPU's tokens on the card, and the card's dense path (prefill with
+    the RG-LRU kernel, pad_cache onto the ring, decode_step) gives them
+    too."""
+    model = Model(tiny_hybrid())
+    params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(4)
+    doc = tuple(int(x) for x in rng.integers(0, vocab, 32))
+    prompts = [doc + tuple(int(x) for x in rng.integers(0, vocab, 7))
+               for _ in range(2)]
+
+    def serve(p, device):
+        eng = EchoEngine(model, p, ECHO, num_blocks=64, block_size=16,
+                         chunk_size=16, max_pages_per_seq=16, device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=4, task_type=TaskType.OFFLINE)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_iters=1000)
+        assert all(r.done for r in reqs) and eng.bm.metrics.hit_blocks > 0
+        return [r.output_tokens for r in reqs]
+    want = serve(params, "cpu")
+    assert serve(gpu_params, cuda) == want
+
+    launches, plain = rglru_scan.launches, ref.ref_rglru_scan.cuda_calls
+    dense = []
+    with torch.inference_mode():
+        for pr in prompts:
+            last, cache = model.prefill(gpu_params, torch.tensor([pr], device=cuda))
+            cache = model.pad_cache(cache, len(pr), len(pr) + 5)
+            out = [int(torch.argmax(last[0]))]
+            for pos in range(len(pr), len(pr) + 3):
+                lg, cache = model.decode_step(
+                    gpu_params, torch.tensor([out[-1]], device=cuda), cache,
+                    torch.tensor([pos], device=cuda))
+                out.append(int(torch.argmax(lg[0])))
+            dense.append(out)
+    assert dense == want
+    assert rglru_scan.launches - launches == 4 * len(prompts)
+    assert ref.ref_rglru_scan.cuda_calls == plain

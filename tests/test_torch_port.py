@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -112,6 +113,7 @@ def no_plain(monkeypatch):
     monkeypatch.setattr(pa_mod, "ref_paged_attention", trip)
     monkeypatch.setattr(cp_mod, "ref_chunked_prefill_attention", trip)
     monkeypatch.setattr(ssd_mod, "ssd_chunked", trip)
+    monkeypatch.setattr(rglru_mod, "ref_rglru_scan", trip)
     return calls
 
 
@@ -135,8 +137,9 @@ def test_cuda_tensor_without_kernel_raises(fake_cuda, no_plain, no_toolchain):
     kp = torch.empty((6, 8, 2, 32), device="cuda")
     bt = torch.zeros((2, 3), dtype=torch.int32, device="cuda")
     cl = torch.ones((2,), dtype=torch.int32, device="cuda")
-    with pytest.raises(RuntimeError, match="nvcc"):
-        ops.paged_attention(q, kp, kp, bt, cl)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ops.paged_attention(q, kp, kp, bt, cl, impl=impl)
     k = torch.empty((24, 2, 32), device="cuda")
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.chunked_prefill_attention(q, k, k, 3)
@@ -147,28 +150,44 @@ def test_cuda_tensor_without_kernel_raises(fake_cuda, no_plain, no_toolchain):
     for kw in ({}, dict(initial_state=init, return_all_states=True)):
         with pytest.raises(RuntimeError, match="nvcc"):
             ops.ssd_scan(x, dta, bm, bm, chunk=16, **kw)
+    for s in (37, 3072):
+        a = torch.empty((1, s, 64), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ops.rglru_scan(a, a)
     assert no_plain == []
 
 
-def test_ssd_dispatch_has_no_plain_route():
-    """``ops.ssd_scan`` names no schedule: nothing but the device picks the
-    path, so no argument can send a CUDA tensor to the plain version."""
+@pytest.mark.parametrize("fn,params", [
+    ("ssd_scan", {"x", "dt_a", "b_mat", "c_mat", "chunk", "initial_state",
+                  "return_all_states"}),
+    ("rglru_scan", {"a", "b"}),
+])
+def test_ssd_dispatch_has_no_plain_route(fn, params):
+    """The scans name no schedule: nothing but the device picks the path,
+    so no argument can send a CUDA tensor to the plain version."""
     import inspect
-    params = set(inspect.signature(ops.ssd_scan).parameters)
-    assert params == {"x", "dt_a", "b_mat", "c_mat", "chunk", "initial_state",
-                      "return_all_states"}
+    assert set(inspect.signature(getattr(ops, fn)).parameters) == params
 
 
-@pytest.mark.parametrize("impl,exc", [("pallas", NotImplementedError),
+@pytest.mark.parametrize("impl,exc", [("pallas", None),
                                       ("ref", ValueError),
                                       ("nope", ValueError)])
-def test_dispatch_has_no_plain_route(impl, exc):
-    """Only the kernel schedules are nameable: the legacy schedule is not
-    ported, and no impl value selects the plain version."""
+def test_dispatch_has_no_plain_route(monkeypatch, impl, exc):
+    """Only the kernel schedules are nameable: ``"pallas"`` dispatches decode
+    to the legacy serial-page wrapper and prefill to the chunked one, and no
+    impl value selects the plain version."""
     q = torch.zeros((1, 4, 16))
     kp = torch.zeros((2, 4, 2, 16))
     bt = torch.zeros((1, 2), dtype=torch.int32)
     cl = torch.ones((1,), dtype=torch.int32)
+    if exc is None:
+        calls = []
+        for name in ("_legacy", "_splitk", "_chunked"):
+            monkeypatch.setattr(ops, name, lambda *a, name=name: calls.append(name))
+        ops.paged_attention(q, kp, kp, bt, cl, impl=impl)
+        ops.chunked_prefill_attention(q, kp[0], kp[0], 0, impl=impl)
+        assert calls == ["_legacy", "_chunked"]
+        return
     with pytest.raises(exc):
         ops.paged_attention(q, kp, kp, bt, cl, impl=impl)
     with pytest.raises(exc):
@@ -183,15 +202,21 @@ def test_non_cpu_non_cuda_device_raises():
         cp_mod.chunked_prefill_attention(q, q, q, 0)
     with pytest.raises(ValueError):
         ssd_mod.ssd_scan(q[None], q, q, q, chunk=4)
+    with pytest.raises(ValueError):
+        pa_mod.paged_attention(q, q, q, q, q)
+    with pytest.raises(ValueError):
+        rglru_mod.rglru_scan(q, q)
 
 
 def test_port_module_list_covers_the_state_path():
     """The import-hygiene tests walk every module of the port, the state
-    path's included."""
+    and hybrid paths' included."""
     names = _module_names()
     for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
                 "repro_torch.models.state_cache",
-                "repro_torch.configs.mamba2_1_3b"):
+                "repro_torch.configs.mamba2_1_3b",
+                "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru",
+                "repro_torch.configs.recurrentgemma_9b"):
         assert mod in names
 
 

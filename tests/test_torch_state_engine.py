@@ -194,16 +194,16 @@ def test_snapshot_pool_is_never_aliased_by_later_steps():
     assert _same(runner.pool[1], saved[1]) and _same(payload, saved[1])
 
 
-def test_hybrid_and_default_device_raise():
-    """The hybrid family is the next slice; a state engine on the default
-    device raises where no card is present."""
-    (_, _), (tm, tp) = _pair(jget_config("mamba2-1.3b").reduced())
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_hybrid_and_default_device_raise(arch):
+    """A state engine, pure-SSM or hybrid, on the default device raises
+    where no card is present; on the CPU it builds the state runner."""
+    (_, _), (tm, tp) = _pair(jget_config(arch).reduced())
+    bs = tm.cfg.ssm_chunk
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
-            tcore.EchoEngine(tm, tp, tcore.ECHO, num_blocks=16,
-                             block_size=tm.cfg.ssm_chunk, chunk_size=32)
-    hybrid = Model(ModelConfig(**dataclasses.asdict(
-        jget_config("recurrentgemma-9b").reduced())))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tcore.EchoEngine(hybrid, None, tcore.ECHO, num_blocks=16, block_size=16,
-                         device="cpu")
+            tcore.EchoEngine(tm, tp, tcore.ECHO, num_blocks=16, block_size=bs,
+                             chunk_size=2 * bs)
+    eng = tcore.EchoEngine(tm, tp, tcore.ECHO, num_blocks=16, block_size=bs,
+                           chunk_size=2 * bs, device="cpu")
+    assert isinstance(eng.runner, StateRunner)
