@@ -9,17 +9,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name and power limit;
   2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc for sm_90a, one process per source, all started together (seconds,
-     and ptxas' registers / shared memory / spills);
-  3. attention kernels (split-K and legacy serial-page decode, chunked
+     and ptxas' registers / shared memory / spills; the bf16 tensor-core
+     prefill and the warp-split legacy decode kernels must not spill);
+  3. attention kernels (split-K and legacy warp-split decode, chunked
      prefill) against their plain PyTorch versions on the card, at the main
      path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16) and on
      the cases of tests/test_kernels.py, garbage pages included;
   4. attention kernel time beside its bound, the plain version's time and
-     ``scaled_dot_product_attention``'s (a yardstick the port never calls);
+     ``scaled_dot_product_attention``'s (a yardstick the port never calls),
+     and the prefill tile height not taken;
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
-     whose decode goes through the legacy kernel only;
+     whose decode goes through the legacy kernel only; a profile of a
+     decode step and a prefill chunk of the first, and of a decode step of
+     the second;
   6. token parity of a tiny float32 attention model between the CPU (plain
      versions) and the card (kernels), and again on the card with host-tier
      swap; and CPU against card with the legacy decode schedule;
@@ -65,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -80,6 +85,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType, TimeModel  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_splitk)
@@ -108,6 +114,11 @@ SSD_H, SSD_P, SSD_N = 64, 64, 128
 # host snapshot per block) and its dense path; W is the LRU width
 R_BLOCK, R_CHUNK, R_BLOCKS, R_LAYERS_RGLRU, W = 32, 64, 64, 26, 4096
 DEV = "cuda"
+# the kernels redesigned for Hopper, by their names in ptxas' output and in
+# profiler traces
+PREFILL_TC, LEGACY_DECODE = "chunked_prefill_tc_kernel", "paged_warp_split_kernel"
+# the prefill tile height not taken by default, timed beside the default
+ALT_TILE_ROWS = next(r for r in cp_mod.TILE_ROWS if r != cp_mod.DEFAULT_TILE_ROWS)
 
 
 def check(cond, msg):
@@ -121,12 +132,14 @@ def phase(name):
 
 # ------------------------------------------------------------------ timing
 def time_ms(fn, iters=30, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` launches, CUDA events
+    """Median device time of ``fn`` over ``iters`` launches, CUDA events
     around each launch, with L2 flushed before each one (a 256 MB write):
     the serving path finds its KV and weights cold, 36 layers apart. A
     device-side spin of about 0.2 ms after the flush keeps the host ahead
     of the card, so the wrapper's own host work before its launch never
-    lands between the two events."""
+    lands between the two events; the median drops the odd launch where a
+    host stall outlasted the spin (one such stall put a 0.02 ms kernel's
+    mean at 0.55 ms)."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     for _ in range(warmup):
         fn()
@@ -139,7 +152,7 @@ def time_ms(fn, iters=30, warmup=3):
         fn()
         e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in ev) / iters
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
 def bound(nbytes, flops, dtype):
@@ -208,6 +221,21 @@ def phase_build():
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
+    # the redesigned kernels must not spill (ptxas' report exists only for
+    # a library built in this run)
+    for lib, kern in (("chunked_prefill", PREFILL_TC), ("paged_attention", LEGACY_DECODE)):
+        entry, found = "", []
+        for line in build.build_log[lib].splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            elif "spill stores" in line and kern in entry:
+                found.append(line.strip())
+        if build.build_log[lib]:
+            spilled = [x for x in found if " 0 bytes spill stores, 0 bytes spill loads" not in x]
+            print(f"  {kern}: {len(found)} instantiations, {len(spilled)} spilling")
+            check(found and not spilled, f"{kern}: no ptxas report, or spills: {spilled}")
+        else:
+            print(f"  {kern}: spill check skipped (library from the build cache)")
 
 
 def phase_kernels(gen):
@@ -236,11 +264,14 @@ def phase_kernels(gen):
             errs[name] = max(errs[name], e)
     for ctx in (0, 37, 448):
         ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, HKV, HD, torch.bfloat16)
+        want = ref.ref_chunked_prefill_attention(*ins, ctx)
         e = compare(f"prefill bf16 Sc=64 T=512 ctx={ctx}",
-                    chunked_prefill_attention(*ins, ctx),
-                    ref.ref_chunked_prefill_attention(*ins, ctx),
+                    chunked_prefill_attention(*ins, ctx), want,
                     TOL["prefill"][torch.bfloat16])
         errs["chunked_prefill_attention"] = max(errs["chunked_prefill_attention"], e)
+        compare(f"prefill bf16 Sc=64 T=512 ctx={ctx} {ALT_TILE_ROWS}-row tiles",
+                chunked_prefill_attention(*ins, ctx, tile_rows=ALT_TILE_ROWS), want,
+                TOL["prefill"][torch.bfloat16])
     # the cases of tests/test_kernels.py, both dtypes
     decode_cases = [(2, 4, 4, 32, 8, 4, [32, 17]), (3, 8, 2, 64, 16, 6, [96, 5, 48]),
                     (2, 8, 1, 32, 8, 5, [40, 3]), (4, 4, 1, 16, 4, 3, [12, 1, 7, 9])]
@@ -311,7 +342,7 @@ def _sdpa_decode(q, kp, vp, bt, cl):
 def _decode_rows(gen, errs, b, ctx):
     """Time one decode launch at batch ``b`` with contexts ``ctx``, the
     main path's table width: split-K, split-K with one split per row, and
-    the legacy serial-page kernel, beside one bound and one SDPA time."""
+    the legacy kernel, beside one bound and one SDPA time."""
     ins = decode_inputs(gen, b, HQ, HKV, HD, BS, MAX_PAGES, ctx, torch.bfloat16,
                         NUM_BLOCKS)
     item = 2
@@ -366,6 +397,8 @@ def phase_timing(gen, errs):
         replaces="src/repro/kernels/chunked_prefill.py:94",
         shape=f"Sc={sc} T={t} ctx={c} Hq={HQ} Hkv={HKV} hd={HD} bf16",
         ms=time_ms(lambda: chunked_prefill_attention(*ins, c)),
+        other=(f"{ALT_TILE_ROWS}-row tiles",
+               time_ms(lambda: chunked_prefill_attention(*ins, c, tile_rows=ALT_TILE_ROWS))),
         plain_ms=time_ms(lambda: ref.ref_chunked_prefill_attention(*ins, c)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             pq, pk, pv, attn_mask=mask, enable_gqa=True)),
@@ -376,7 +409,8 @@ def phase_timing(gen, errs):
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms"
-              + (f", one split {r['one_split_ms']:.4f} ms" if "one_split_ms" in r else ""))
+              + (f", one split {r['one_split_ms']:.4f} ms" if "one_split_ms" in r else "")
+              + (f", {r['other'][0]} {r['other'][1]:.4f} ms" if "other" in r else ""))
     return rows
 
 
@@ -385,8 +419,9 @@ def _profile_steps(steps, ours, what):
     wall time (mean of 5, no profiler), and from one ``torch.profiler``
     trace the device time summed over kernels and copies, their number,
     and the ones that took longest; then the share of our kernels (names
-    containing one of ``ours``)."""
+    containing one of ``ours``). Returns {step: launches of ours}."""
     from torch.profiler import ProfilerActivity, profile
+    ours_launches = {}
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -415,6 +450,8 @@ def _profile_steps(steps, ours, what):
                 if any(o in kname for o in ours)]
         print(f"    {what} (ours): {sum(t for t, _ in mine):.3f} ms over "
               f"{sum(n for _, n in mine)} launches")
+        ours_launches[name] = sum(n for _, n in mine)
+    return ours_launches
 
 
 def _attention_steps(runner):
@@ -460,12 +497,13 @@ def phase_serve():
     print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
           f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile_steps(_attention_steps(eng.runner),
-                   ("splitk_", "chunked_prefill_kernel"), "attention kernels")
+    seen = _profile_steps(_attention_steps(eng.runner), ("splitk_", PREFILL_TC),
+                          "attention kernels")
+    check(all(seen.values()), f"a profiled step launched none of our kernels: {seen}")
     del eng
     torch.cuda.empty_cache()
 
-    # the same mix through the legacy serial-page decode kernel
+    # the same mix through the legacy decode kernel
     print("serve again with attn_impl='pallas' (legacy decode schedule)")
     on2, off2, eng, _, wall = _serve_qwen(model, params, "pallas")
     check(paged_attention_splitk.launches == 0,
@@ -478,6 +516,10 @@ def phase_serve():
           f"{np.mean([r.tpot() for r in on2]):.4f}; output tokens equal to the "
           f"split-K serve's: {sum(a == b for a, b in pairs)} of {len(pairs)} "
           f"({sum(a == b for a, b in pairs) / len(pairs):.1%})")
+    decode = {k: fn for k, fn in _attention_steps(eng.runner).items()
+              if k.startswith("decode")}
+    seen = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
+    check(all(seen.values()), f"the legacy decode step launched no {LEGACY_DECODE}")
     del eng, params
     torch.cuda.empty_cache()
     return launches

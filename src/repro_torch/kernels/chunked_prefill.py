@@ -16,8 +16,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_chunked_prefill_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
+TILE_ROWS = (32, 64)   # packed (query position, group member) rows a CTA, bf16
+DEFAULT_TILE_ROWS = 64  # as fast as 32 on the card (PERF.md), half the K/V reads
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _check(q, k, v):
@@ -42,11 +44,13 @@ def _check(q, k, v):
             raise ValueError("operands must be 16-byte aligned")
 
 
-def chunked_prefill_attention(q, k, v, ctx_len):
+def chunked_prefill_attention(q, k, v, ctx_len, *, tile_rows=DEFAULT_TILE_ROWS):
     """q (Sc,Hq,hd); k/v (T,Hkv,hd); ctx_len int -> (Sc,Hq,hd) in q's dtype.
 
     Rows of k/v beyond ctx_len + Sc are padding (masked by causality). CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors launch the kernel. In bf16
+    a CTA takes ``tile_rows`` packed rows: one kv head's G query heads at
+    consecutive positions."""
     if q.device.type == "cpu":
         return ref_chunked_prefill_attention(q, k, v, ctx_len)
     if q.device.type != "cuda":
@@ -54,12 +58,14 @@ def chunked_prefill_attention(q, k, v, ctx_len):
     fn = build.kernel_fn("chunked_prefill", "chunked_prefill_attention",
                          _ARGTYPES)
     _check(q, k, v)
+    if tile_rows not in TILE_ROWS:
+        raise ValueError(f"tile_rows must be one of {TILE_ROWS}, got {tile_rows}")
     sc, hq, hd = q.shape
     t, hkv, _ = k.shape
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              sc, t, hq, hkv, hd, int(ctx_len), int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             tile_rows, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "chunked_prefill_attention")
     chunked_prefill_attention.launches += 1
     return out

@@ -8,9 +8,9 @@ the Hopper kernels or the call raises. ``impl`` names the attention
 schedule, as in the JAX package:
 
 * ``"auto"`` — the split-K decode kernel and the chunked prefill kernel;
-* ``"pallas"`` — the legacy serial-page decode kernel, and the same chunked
-  prefill kernel (the JAX package runs its one fused prefill kernel under
-  both names).
+* ``"pallas"`` — the legacy decode kernel (one launch, one CTA per
+  sequence and kv head), and the same chunked prefill kernel (the JAX
+  package runs its one fused prefill kernel under both names).
 
 There is no value that sends a CUDA tensor to the plain version, and no
 tuning preset: the kernels' launch parameters follow the card they run on.

@@ -3,7 +3,7 @@
 ``paged_attention_splitk`` (``csrc/paged_attention_splitk.cu``) replaces the
 TPU kernel ``repro/kernels/paged_attention.py::paged_attention_splitk``;
 ``paged_attention`` (``csrc/paged_attention.cu``) replaces the legacy
-serial-page schedule ``repro/kernels/paged_attention.py::paged_attention``.
+schedule ``repro/kernels/paged_attention.py::paged_attention``.
 Their source notes say what bounds them on the card (bytes: every live KV
 row is read once) and how each design answers that. Both share one
 contract and one plain version, ``ref_paged_attention``: a CPU tensor goes
@@ -114,14 +114,16 @@ paged_attention_splitk.launches = 0
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
-    """The legacy serial-page schedule: q (B,Hq,hd); k/v_pages
-    (P,bs,Hkv,hd); block_tables (B,nblk) int32; ctx_lens (B,) int32 ->
-    (B,Hq,hd) in q's dtype.
+    """The legacy schedule: q (B,Hq,hd); k/v_pages (P,bs,Hkv,hd);
+    block_tables (B,nblk) int32; ctx_lens (B,) int32 -> (B,Hq,hd) in q's
+    dtype.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel: one
-    CTA per (sequence, kv head) walks the row's live pages in order with
-    one running softmax and normalises at the end. A row with ctx = 0 comes
-    out as zeros."""
+    CPU tensors run the plain version. CUDA tensors launch the kernel, one
+    CTA per (sequence, kv head), normalised in the same launch. In bf16 the
+    CTA's four warps walk contiguous shares of the row's live pages with
+    asynchronous page loads and merge their running softmaxes at the end;
+    in float32 it walks the pages one at a time, as a split-K share does.
+    A row with ctx = 0 comes out as zeros."""
     if q.device.type == "cpu":
         return ref_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
     if q.device.type != "cuda":

@@ -44,12 +44,24 @@ PAGED_DECODE_CASES = [
     (4, 4, 1, 16, 4, 3, [12, 1, 7, 9]),
     (8, 32, 8, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),   # qwen3-4b
     (8, 32, 8, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),  # the serve's
+    # a full batch of rows of up to 32 pages: page edges, a full table, ctx 0
+    (32, 32, 8, 128, 16, 32, [1, 16, 17, 511, 512, 0, 33, 64, 65, 100, 128, 129,
+                              200, 255, 256, 257, 300, 320, 383, 384, 400, 448,
+                              449, 480, 500, 2, 15, 31, 32, 48, 97, 510]),
+    (2, 8, 2, 64, 16, 4, [5, 3]),        # fewer live pages than a CTA's warps
+    # contexts past the table's nblk * bs tokens: only the table's keys count
+    (3, 8, 2, 64, 4, 3, [20, 12, 9]),
+    (2, 4, 1, 32, 8, 3, [30, 24]),
 ]
 CHUNKED_CASES = [
     (64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37), (32, 64, 2, 1, 64, 30),
     (100, 420, 4, 1, 32, 250), (65, 131, 8, 2, 32, 66), (7, 16, 4, 4, 16, 9),
     (64, 192, 8, 8, 32, 128),
     (64, 512, 32, 8, 128, 0), (64, 512, 32, 8, 128, 448),           # qwen3-4b
+    (48, 300, 16, 2, 128, 200),       # G 8: 384 packed rows
+    (64, 2048, 32, 8, 128, 1984),     # a long prefix through many ring stages
+    (1, 40, 4, 1, 64, 39),            # a single query row
+    (64, 512, 32, 8, 128, 37),        # a frontier off every tile boundary
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
@@ -117,6 +129,22 @@ def test_chunked_kernel_matches_plain(cuda, dtype, case):
     tol = PREFILL_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     _assert_rel_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_chunked_kernel_32_row_tiles_match_plain(cuda, case):
+    """bf16 with the tile height not taken by default: 32 packed rows a CTA."""
+    sc, t, hq, hkv, hd, ctx = case
+    rng = np.random.default_rng(sc * 3 + ctx)
+    q, k, v = (_randn(rng, shape, torch.bfloat16, cuda)
+               for shape in ((sc, hq, hd), (t, hkv, hd), (t, hkv, hd)))
+    got = chunked_prefill_attention(q, k, v, ctx, tile_rows=32)
+    want = ref.ref_chunked_prefill_attention(q, k, v, ctx)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    tol = PREFILL_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _assert_rel_close(got, want, torch.bfloat16)
 
 
 def _paged_inputs(case, dtype, dev):

@@ -174,7 +174,7 @@ def test_ssd_dispatch_has_no_plain_route(fn, params):
                                       ("nope", ValueError)])
 def test_dispatch_has_no_plain_route(monkeypatch, impl, exc):
     """Only the kernel schedules are nameable: ``"pallas"`` dispatches decode
-    to the legacy serial-page wrapper and prefill to the chunked one, and no
+    to the legacy wrapper and prefill to the chunked one, and no
     impl value selects the plain version."""
     q = torch.zeros((1, 4, 16))
     kp = torch.zeros((2, 4, 2, 16))
