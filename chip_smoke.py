@@ -9,21 +9,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name and power limit;
   2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc for sm_90a, one process per source, all started together (seconds,
-     and ptxas' registers / shared memory / spills; the bf16 tensor-core
-     prefill and the warp-split legacy decode kernels must not spill);
+     and ptxas' registers / shared memory / spills; the redesigned kernels
+     (bf16 tensor-core prefill, warp-split legacy decode, clustered split-K
+     decode, 3xTF32 SSD scan) must not spill);
   3. attention kernels (split-K and legacy warp-split decode, chunked
      prefill) against their plain PyTorch versions on the card, at the main
-     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16) and on
-     the cases of tests/test_kernels.py, garbage pages included;
+     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at long
+     context (B 2, 512-page tables) and with more splits than live tiles, and
+     on the cases of tests/test_kernels.py, garbage pages included;
   4. attention kernel time beside its bound, the plain version's time and
-     ``scaled_dot_product_attention``'s (a yardstick the port never calls),
-     and the prefill tile height not taken;
+     ``scaled_dot_product_attention``'s (a yardstick the port never calls):
+     decode at the serve's B 8, at B 32 and at long context (B 2, contexts
+     8192 and 5000), split-K also at 1, 2, 4 and 8 splits; and the prefill
+     tile height not taken;
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
      whose decode goes through the legacy kernel only; a profile of a
-     decode step and a prefill chunk of the first, and of a decode step of
-     the second;
+     decode step and a prefill chunk of the first (one split-K cluster
+     launch a layer and no merge kernel in the decode step, one prefill
+     launch a layer in the chunk), and of a decode step of the second;
   6. token parity of a tiny float32 attention model between the CPU (plain
      versions) and the card (kernels), and again on the card with host-tier
      swap; and CPU against card with the legacy decode schedule;
@@ -32,8 +37,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      P 64, N 128, chunk 64, S 64 / 128 / 512), each from a zero and a random
      initial state, with normal and slow decay; y, the final state and every
      chunk's state;
-  8. SSD kernel time at the serve's span shape beside its bound and the plain
-     version's time (no single PyTorch call computes the scan);
+  8. SSD kernel time at the serve's span shape beside its float32 bound, its
+     3xTF32 tensor-core bound and the plain version's time (no single
+     PyTorch call computes the scan);
   9. serve full-width mamba2-1.3b (48 layers, bf16, seeded random weights)
      through ``EchoEngine`` and the state-snapshot runner: every request
      finishes, every span's 48 SSD scans go through the kernel, snapshot
@@ -88,7 +94,7 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention, paged_attention_splitk)
+    default_num_splits, paged_attention, paged_attention_splitk)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -117,6 +123,10 @@ DEV = "cuda"
 # the kernels redesigned for Hopper, by their names in ptxas' output and in
 # profiler traces
 PREFILL_TC, LEGACY_DECODE = "chunked_prefill_tc_kernel", "paged_warp_split_kernel"
+SPLITK_DECODE, SSD_KERNEL = "splitk_cluster_kernel", "ssd_scan_tc_kernel"
+# the long-context decode shape split-K's clusters exist for: B 2 at
+# contexts 8192 and 5000 over 512-page tables (54.0 MB of K/V)
+LONG_CTX, LONG_NBLK = [8192, 5000], 512
 # the prefill tile height not taken by default, timed beside the default
 ALT_TILE_ROWS = next(r for r in cp_mod.TILE_ROWS if r != cp_mod.DEFAULT_TILE_ROWS)
 
@@ -223,7 +233,8 @@ def phase_build():
                 print(f"  {name}: {line.strip()}")
     # the redesigned kernels must not spill (ptxas' report exists only for
     # a library built in this run)
-    for lib, kern in (("chunked_prefill", PREFILL_TC), ("paged_attention", LEGACY_DECODE)):
+    for lib, kern in (("chunked_prefill", PREFILL_TC), ("paged_attention", LEGACY_DECODE),
+                      ("paged_attention_splitk", SPLITK_DECODE), ("ssd_scan", SSD_KERNEL)):
         entry, found = "", []
         for line in build.build_log[lib].splitlines():
             if "Compiling entry" in line:
@@ -244,23 +255,30 @@ def phase_kernels(gen):
             "chunked_prefill_attention": 0.0}
     # main-path decode: ragged contexts up to the table with one full row,
     # then the serve's own shape (contexts near 100); one padded row each
-    for b, lo, hi in ((1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS),
-                      (32, 1, MAX_PAGES * BS), (8, 80, 120)):
+    # then the long-context shape (a full cluster of splits, a padded row)
+    # and two live tiles under 8 splits
+    shapes = [(b, lo, hi, MAX_PAGES, None) for b, lo, hi in (
+        (1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS), (32, 1, MAX_PAGES * BS),
+        (8, 80, 120))]
+    shapes += [(2, LONG_CTX[0], LONG_CTX[0], LONG_NBLK, None), (1, 20, 20, MAX_PAGES, 8)]
+    for b, lo, hi, nblk, splits in shapes:
         ctx = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEV).tolist()
-        if hi == MAX_PAGES * BS:
+        if hi == nblk * BS:
             ctx[0] = hi
         if b > 1:
             ctx[-1] = 0
-        ins = decode_inputs(gen, b, HQ, HKV, HD, BS, MAX_PAGES, ctx,
-                            torch.bfloat16, NUM_BLOCKS)
+        ins = decode_inputs(gen, b, HQ, HKV, HD, BS, nblk, ctx, torch.bfloat16,
+                            NUM_BLOCKS)
         live = ins[4] > 0
         want = ref.ref_paged_attention(*ins)
-        for name, fn in (("paged_attention_splitk", paged_attention_splitk),
+        for name, fn in (("paged_attention_splitk",
+                          lambda *a: paged_attention_splitk(*a, num_splits=splits)),
                          ("paged_attention", paged_attention)):
             got = fn(*ins)
             check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
-            e = compare(f"{name} bf16 B={b} ctx {lo}..{hi}", got, want,
-                        TOL["decode"][torch.bfloat16], live)
+            e = compare(f"{name} bf16 B={b} nblk={nblk} ctx {lo}..{hi}"
+                        + (f" splits={splits}" if splits and fn is not paged_attention
+                           else ""), got, want, TOL["decode"][torch.bfloat16], live)
             errs[name] = max(errs[name], e)
     for ctx in (0, 37, 448):
         ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, HKV, HD, torch.bfloat16)
@@ -283,7 +301,7 @@ def phase_kernels(gen):
         for b, hq, hkv, hd, bs, nblk, ctx in decode_cases:
             ins = decode_inputs(gen, b, hq, hkv, hd, bs, nblk, ctx, dtype, nblk * b + 2)
             want = ref.ref_paged_attention(*ins)
-            for splits in (1, 2, 4, None):
+            for splits in (1, 2, 4, 8, None):
                 compare(f"decode {str(dtype)[6:]} b={b} hq={hq} hkv={hkv} hd={hd} "
                         f"bs={bs} splits={splits}",
                         paged_attention_splitk(*ins, num_splits=splits), want,
@@ -339,11 +357,12 @@ def _sdpa_decode(q, kp, vp, bt, cl):
     return q[:, :, None], k, v, mask[:, None, None]
 
 
-def _decode_rows(gen, errs, b, ctx):
-    """Time one decode launch at batch ``b`` with contexts ``ctx``, the
-    main path's table width: split-K, split-K with one split per row, and
-    the legacy kernel, beside one bound and one SDPA time."""
-    ins = decode_inputs(gen, b, HQ, HKV, HD, BS, MAX_PAGES, ctx, torch.bfloat16,
+def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES):
+    """Time one decode launch at batch ``b`` with contexts ``ctx`` over
+    tables of ``nblk`` pages (by default the main path's width): split-K
+    (its default split count, then 1, 2, 4 and 8 splits a row) and the
+    legacy kernel, beside one bound and one SDPA time."""
+    ins = decode_inputs(gen, b, HQ, HKV, HD, BS, nblk, ctx, torch.bfloat16,
                         NUM_BLOCKS)
     item = 2
     live_pages = sum(-(-c // BS) for c in ctx)
@@ -351,8 +370,12 @@ def _decode_rows(gen, errs, b, ctx):
               + live_pages * 4 + b * 4)
     flops = 4 * sum(ctx) * HQ * HD
     sq, sk, sv, smask = _sdpa_decode(*ins)
-    shape = (f"B={b} Hq={HQ} Hkv={HKV} hd={HD} bs={BS} nblk={MAX_PAGES} "
-             f"sum(ctx)={sum(ctx)} bf16")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = (f"B={b} Hq={HQ} Hkv={HKV} hd={HD} bs={BS} nblk={nblk} "
+             f"sum(ctx)={sum(ctx)} bf16, default splits "
+             f"{default_num_splits(b, HKV, nblk, BS, sms)}")
+    splits_ms = {n: time_ms(lambda: paged_attention_splitk(*ins, num_splits=n))
+                 for n in (1, 2, 4, 8)}
     common = dict(
         route="cuda", shape=shape,
         plain_ms=time_ms(lambda: ref.ref_paged_attention(*ins)),
@@ -363,7 +386,7 @@ def _decode_rows(gen, errs, b, ctx):
                  source="src/repro_torch/kernels/csrc/paged_attention_splitk.cu",
                  replaces="src/repro/kernels/paged_attention.py:164",
                  ms=time_ms(lambda: paged_attention_splitk(*ins)),
-                 one_split_ms=time_ms(lambda: paged_attention_splitk(*ins, num_splits=1)),
+                 one_split_ms=splits_ms[1], splits_ms=splits_ms,
                  max_abs_err=errs["paged_attention_splitk"]),
             dict(common, name="paged_attention",
                  source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -381,7 +404,8 @@ def phase_timing(gen, errs):
     rows = (_decode_rows(gen, errs, 8, torch.randint(
                 80, 121, (8,), generator=gen, device=DEV).tolist())
             + _decode_rows(gen, errs, 32, torch.randint(
-                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist()))
+                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
+            + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK))
     # prefill: one engine chunk against the longest prefix of the table
     item = 2
     sc, t, c = CHUNK, MAX_PAGES * BS, 448
@@ -409,7 +433,8 @@ def phase_timing(gen, errs):
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms"
-              + (f", one split {r['one_split_ms']:.4f} ms" if "one_split_ms" in r else "")
+              + (", splits " + ", ".join(f"{n}: {t:.4f}" for n, t in r["splits_ms"].items())
+                 + " ms" if "splits_ms" in r else "")
               + (f", {r['other'][0]} {r['other'][1]:.4f} ms" if "other" in r else ""))
     return rows
 
@@ -419,9 +444,10 @@ def _profile_steps(steps, ours, what):
     wall time (mean of 5, no profiler), and from one ``torch.profiler``
     trace the device time summed over kernels and copies, their number,
     and the ones that took longest; then the share of our kernels (names
-    containing one of ``ours``). Returns {step: launches of ours}."""
+    containing one of ``ours``). Returns {step: {device kernel or copy name:
+    (ms, launches)}}."""
     from torch.profiler import ProfilerActivity, profile
-    ours_launches = {}
+    traces = {}
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -449,9 +475,16 @@ def _profile_steps(steps, ours, what):
         mine = [(t, n) for kname, (t, n) in by_name.items()
                 if any(o in kname for o in ours)]
         print(f"    {what} (ours): {sum(t for t, _ in mine):.3f} ms over "
-              f"{sum(n for _, n in mine)} launches")
-        ours_launches[name] = sum(n for _, n in mine)
-    return ours_launches
+              f"{sum(n for _, n in mine)} launches, "
+              f"{sum(t for t, _ in mine) / max(dev_ms, 1e-9):.1%} of device busy")
+        traces[name] = by_name
+    return traces
+
+
+def _launches(by_name, names):
+    """Launches in one step's trace of the kernels whose names contain one
+    of ``names``."""
+    return sum(n for kname, (_, n) in by_name.items() if any(o in kname for o in names))
 
 
 def _attention_steps(runner):
@@ -497,9 +530,16 @@ def phase_serve():
     print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
           f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    seen = _profile_steps(_attention_steps(eng.runner), ("splitk_", PREFILL_TC),
-                          "attention kernels")
-    check(all(seen.values()), f"a profiled step launched none of our kernels: {seen}")
+    attn = (SPLITK_DECODE, PREFILL_TC, LEGACY_DECODE, "merge")
+    traces = _profile_steps(_attention_steps(eng.runner), attn[:2], "attention kernels")
+    seen = {k: _launches(v, attn) for k, v in traces.items()}
+    print(f"  attention launches per profiled step: {seen}")
+    check(all(n == cfg.num_layers for n in seen.values()),
+          f"a profiled step launched other than one attention kernel a layer: {seen}")
+    decode_trace = traces["decode B=8 ctx=101"]
+    check(_launches(decode_trace, (SPLITK_DECODE,)) == cfg.num_layers
+          and not _launches(decode_trace, ("merge",)),
+          "the split-K decode step is not one cluster launch a layer")
     del eng
     torch.cuda.empty_cache()
 
@@ -518,8 +558,9 @@ def phase_serve():
           f"({sum(a == b for a, b in pairs) / len(pairs):.1%})")
     decode = {k: fn for k, fn in _attention_steps(eng.runner).items()
               if k.startswith("decode")}
-    seen = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
-    check(all(seen.values()), f"the legacy decode step launched no {LEGACY_DECODE}")
+    traces = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
+    check(all(_launches(v, (LEGACY_DECODE,)) for v in traces.values()),
+          f"the legacy decode step launched no {LEGACY_DECODE}")
     del eng, params
     torch.cuda.empty_cache()
     return launches
@@ -665,6 +706,9 @@ def phase_ssd_kernel(gen):
     err = 0.0
     cases = [(2, 64, 2, 8, 4, 16), (1, 128, 4, 16, 8, 32), (3, 32, 1, 4, 16, 16)]
     cases += [(1, s, SSD_H, SSD_P, SSD_N, M_BLOCK) for s in (64, 128, 512)]
+    # batch 2 over four chunks (the double buffer), and chunk 32 at mamba2's
+    # widths with 8 heads (16-row slices: a cluster of 4 a head)
+    cases += [(2, 256, SSD_H, SSD_P, SSD_N, M_BLOCK), (1, 96, 8, SSD_P, SSD_N, 32)]
     for b, s, h, p, n, chunk in cases:
         for with_init in (False, True):
             for slow in (False, True):
@@ -696,6 +740,10 @@ def phase_ssd_timing(gen, err):
     tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
     flops = 2 * b * nc * h * (tri * n + tri * p + 2 * chunk * n * p)
     t_bound, by = bound(nbytes, flops, torch.float32)
+    # the products run on the tensor cores in 3xTF32: three TF32 products
+    # each (495 TFLOP/s dense, NVIDIA data sheet)
+    tc_bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (3 * flops / 495e12 * 1e3, "operations"))
     row = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -708,7 +756,9 @@ def phase_ssd_timing(gen, err):
                                              return_all_states=True)),
         library_ms=None, bound_ms=t_bound, bound_by=by, max_abs_err=err)
     print(f"  ssd_scan [{row['shape']}]: kernel {row['ms']:.4f} ms, bound "
-          f"{t_bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+          f"{t_bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
+          f"in float32), tensor-core bound {tc_bound[0]:.4f} ms ({tc_bound[1]}: 3 x "
+          f"{flops / 1e9:.3f} GFLOP at 495 TFLOP/s TF32), "
           f"plain {row['plain_ms']:.4f} ms, library none (no single PyTorch call "
           f"computes the SSD scan)")
     return row
@@ -798,12 +848,14 @@ def phase_serve_mamba():
           f"snapshot pool {len(runner.pool)} snapshots, {pool_bytes / 2**30:.2f} GiB "
           f"on the host")
     spare = [M_BLOCKS - 3, M_BLOCKS - 2, M_BLOCKS - 1]
-    _profile_steps({
-        f"span S={M_CHUNK} from zero state": lambda: runner.prefill_chunk(
-            list(range(M_CHUNK)), 0, spare[:2], rid=-1),
+    span = f"span S={M_CHUNK} from zero state"
+    traces = _profile_steps({
+        span: lambda: runner.prefill_chunk(list(range(M_CHUNK)), 0, spare[:2], rid=-1),
         f"decode one request at pos {M_CHUNK}": lambda: runner.decode(
             [1], [spare], [M_CHUNK], rids=[-1]),
-    }, ("ssd_scan_kernel",), "SSD kernel")
+    }, (SSD_KERNEL,), "SSD kernel")
+    check(_launches(traces[span], (SSD_KERNEL,)) == cfg.num_layers,
+          f"the profiled span did not launch {SSD_KERNEL} once a layer")
     del eng, runner, params
     torch.cuda.empty_cache()
     return launches

@@ -16,7 +16,9 @@
 // by one SM, and what matters is how many of its bytes are in flight at
 // once and how few instructions each byte costs. The first version walked
 // a row one 16-token page at a time through float32 shared memory, a full
-// device-memory round trip per page. Now (paged_warp_walk.cuh):
+// device-memory round trip per page. Now (paged_warp_walk.cuh, whose walk
+// the split-K kernel shares; this kernel walks all of a row's tiles and
+// normalises the CTA's state itself):
 //   * the CTA's warps split the row's live tokens into contiguous shares
 //     and walk them side by side, each with its own float32 online
 //     softmax; the CTA merges the warps' states by log-sum-exp at the end;
@@ -60,8 +62,17 @@ paged_warp_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int* pages = block_tables + (size_t)b * nblk;
   const int ctx = ctx_lens[b];
   if constexpr (sizeof(T) == 2) {
-    warp_walk::attend_row_mma<HD, kWarps>(q, k_pages, v_pages, pages, out, b, h, hq,
-                                          hkv, bs, ctx, nblk, scale, smem);
+    // walk every tile of the row, then normalise the CTA's state and cast
+    __shared__ warp_walk::CtaState state;
+    const int n_tok = min(max(ctx, 0), nblk * bs);
+    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs,
+                                      n_tok, 0, (n_tok + warp_walk::kTile - 1) /
+                                      warp_walk::kTile, scale, smem, state);
+    const float* acc = reinterpret_cast<const float*>(smem);
+    const int g_size = hq / hkv;
+    T* orow = out + ((size_t)b * hq + (size_t)h * g_size) * HD;
+    for (int e = threadIdx.x; e < g_size * HD; e += kWarps * 32)
+      orow[e] = __float2bfloat16(__fdividef(acc[e], fmaxf(state.l[e / HD], 1e-20f)));
   } else {
     using paged::acc_len;
     __shared__ float l_s[paged::kMaxG];

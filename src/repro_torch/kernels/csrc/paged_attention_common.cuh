@@ -1,6 +1,7 @@
-// The page walk shared by the two paged decode kernels, Hopper sm_90a:
-// paged_attention_splitk.cu (each split walks its share of a row's live
-// pages) and paged_attention.cu (the legacy schedule walks all of them).
+// The float32 page walk shared by the two paged decode kernels, Hopper
+// sm_90a: paged_attention_splitk.cu (each split walks its share of a row's
+// live pages) and paged_attention.cu (the legacy schedule walks all of
+// them). Their bf16 instantiations walk with paged_warp_walk.cuh.
 //
 // One CTA of kThreads threads serves one (kv head h, sequence b) and its
 // G = Hq/Hkv query rows. Each K/V page is loaded once into shared memory

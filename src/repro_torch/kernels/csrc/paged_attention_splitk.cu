@@ -9,154 +9,204 @@
 // What bounds it on the card: bytes. A decode step reads every live KV row
 // once, ctx*Hkv*hd*2*itemsize per sequence per layer, and does 4*hd flops per
 // (query head, key) pair: about G flops per byte, far under the ~295 the
-// H100 needs to be compute bound. The design therefore aims at reading each
-// page once and keeping everything else on chip:
-//   * one CTA per (split, kv head, sequence); it reads its own block-table
-//     entries. A row's live pages (page i is live iff i < nblk and
-//     i*bs < ctx) are divided evenly among the splits, so ragged batches pay
-//     for their own context and a short context still spreads over every
-//     split instead of landing in the first one;
-//   * each K/V page is loaded once into shared memory for all G query rows;
-//   * scores, the float32 online softmax (m, l) and the accumulator stay in
-//     shared memory and registers (the page walk of
-//     paged_attention_common.cuh, shared with the legacy kernel
-//     paged_attention.cu); only the unnormalised partial
-//     (acc, m, l) of each split goes to device memory, in float32;
-//   * a second small launch merges the splits by log-sum-exp, divides once
-//     by max(l, 1e-20) and casts. A split without live pages contributes
-//     (0, -1e30, 0), the identity of the merge; a row with ctx = 0 (a padded
-//     decode row) comes out as exact zeros, finite.
-// Splitting the pages keeps the card busy when B*Hkv CTAs alone would not
-// fill its 132 SMs (the wrapper picks the number of splits).
-// Simple first version: float32 FMA from shared memory; wgmma, TMA and
-// warp specialisation are later work.
+// H100 needs to be compute bound. So what matters is how many of a row's
+// bytes are in flight at once, how few instructions each byte costs, and
+// that nothing but the KV crosses device memory (no partials, no second
+// launch to merge them):
+//   * one launch, grid (nsplit, Hkv, B): the nsplit CTAs of one (sequence,
+//     kv head) form one thread-block cluster (cudaLaunchKernelEx, at most 8
+//     CTAs, the portable cluster size; one split launches without a
+//     cluster, whose launch cost a microsecond at batch 8). Split s walks
+//     its share of the row's live 16-token tiles (a row's tiles in nsplit
+//     equal contiguous shares, so a short context spreads over every split
+//     and a split past the live tiles walks nothing);
+//   * bf16 walks with the legacy kernel's warp-split tensor-core walk
+//     (paged_warp_walk.cuh: 4 warps, each with a three-tile cp.async ring,
+//     S^T = K Q^T and O^T += V^T P^T on mma.m16n8k16, table entries by
+//     shuffles), which leaves the CTA's unnormalised (m, l, acc) in shared
+//     memory; float32 walks with paged_attention_common.cuh's FMA body, as
+//     the legacy kernel's float32 does (its tests hold it to 2e-4, which no
+//     bf16 or TF32 product meets);
+//   * after cluster.sync() each CTA reads every split's (m, l) and acc
+//     through distributed shared memory (map_shared_rank), merges them by
+//     log-sum-exp, normalises once by max(l, 1e-20) and stores its slice of
+//     the G x hd outputs; a second cluster.sync() keeps every CTA's shared
+//     memory alive until its peers have read it. No partial touches device
+//     memory. A split without live tiles contributes (acc 0, m -1e30, l 0),
+//     the identity of the merge; a row with ctx = 0 comes out as zeros.
+// The wrapper picks the number of splits: enough tiles per warp for its
+// ring, about two waves of resident CTAs, at most a cluster (8); at the
+// serve's table width that is one split.
+
+#include <cooperative_groups.h>
 
 #include "paged_attention_common.cuh"
+#include "paged_warp_walk.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using paged::acc_len;
-using paged::kNegInf;
-using paged::kThreads;
+constexpr int kWarps = 4;
+// the portable cluster size (16-CTA clusters, non-portable, were no faster
+// at long context in a trial)
+constexpr int kMaxSplits = 8;
+static_assert(kWarps * 32 == paged::kThreads, "float32 walks with the CTA's threads");
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-splitk_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(T) == 2 ? warp_walk::smem_bytes<HD, kWarps>()
+                        : (size_t)paged::kMaxG * HD * sizeof(float);
+}
+
+// one CTA an SM is all the launch bounds promise, as for the legacy kernel:
+// ptxas takes the registers the walk needs instead of spilling
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+splitk_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                       const T* __restrict__ v_pages,
                       const int* __restrict__ block_tables,
-                      const int* __restrict__ ctx_lens,
-                      float* __restrict__ o_part,   // (B, Hkv, nsplit, G, HD)
-                      float* __restrict__ m_part,   // (B, Hkv, nsplit, G)
-                      float* __restrict__ l_part,   // (B, Hkv, nsplit, G)
+                      const int* __restrict__ ctx_lens, T* __restrict__ out,
                       int hq, int hkv, int bs, int nblk, float scale) {
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ warp_walk::CtaState state;
+  __shared__ float weight[kMaxSplits][paged::kMaxG];   // exp(m_s - max_s m_s)
+  __shared__ float inv_l[paged::kMaxG];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = gridDim.x;            // grid x = cluster x
+  const bool clustered = nsplit > 1;       // one split launches without a cluster
+  const int split = clustered ? (int)cluster.block_rank() : 0;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int g_size = hq / hkv;
   const int tid = threadIdx.x;
   const int ctx = ctx_lens[b];
+  const int* pages = block_tables + (size_t)b * nblk;
+  float* acc = reinterpret_cast<float*>(smem);         // (kMaxG, HD), this split's
 
-  // this row's live pages, in equal shares of consecutive pages per split
-  const int live = min(nblk, (max(ctx, 0) + bs - 1) / bs);
-  const int share = (live + nsplit - 1) / nsplit;
-  const int first = split * share;
-  float m, l, acc[acc_len<HD>()];
-  paged::attend_pages<T, HD>(q, k_pages, v_pages, block_tables + (size_t)b * nblk,
-                             b, h, hq, hkv, bs, ctx, first,
-                             min(first + share, live), scale, m, l, acc);
-
-  const size_t part = ((size_t)b * hkv + h) * nsplit + split;
+  if constexpr (sizeof(T) == 2) {
+    const int n_tok = min(max(ctx, 0), nblk * bs);
+    const int tiles = (n_tok + warp_walk::kTile - 1) / warp_walk::kTile;
+    const int share = (tiles + nsplit - 1) / nsplit;
+    const int t0 = min(split * share, tiles);
+    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs,
+                                      n_tok, t0, min(t0 + share, tiles), scale, smem,
+                                      state);
+  } else {
+    // this split's share of the row's live pages
+    using paged::acc_len;
+    const int live = min(nblk, (max(ctx, 0) + bs - 1) / bs);
+    const int share = (live + nsplit - 1) / nsplit;
+    const int first = min(split * share, live);
+    float m, l, a[acc_len<HD>()];
+    paged::attend_pages<T, HD>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs, ctx, first,
+                               min(first + share, live), scale, m, l, a);
 #pragma unroll
-  for (int j = 0; j < acc_len<HD>(); ++j) {
-    const int e = tid + j * kThreads;
-    const int g = e / HD, d = e % HD;
-    if (g < g_size) o_part[(part * g_size + g) * HD + d] = acc[j];
+    for (int j = 0; j < acc_len<HD>(); ++j) {
+      const int e = tid + j * paged::kThreads;
+      if (e < g_size * HD) acc[e] = a[j];
+    }
+    const int gi = tid / bs;
+    if (gi < g_size && tid % bs == 0) {
+      state.m[gi] = m;
+      state.l[gi] = l;
+    }
   }
-  const int gi = tid / bs;
-  if (gi < g_size && tid % bs == 0) {
-    m_part[part * g_size + gi] = m;
-    l_part[part * g_size + gi] = l;
-  }
-}
 
-// one thread per output element: log-sum-exp merge of the split partials
-template <typename T>
-__global__ void splitk_merge_kernel(const float* __restrict__ o_part,
-                                    const float* __restrict__ m_part,
-                                    const float* __restrict__ l_part,
-                                    T* __restrict__ out, int total, int hq,
-                                    int hkv, int hd, int nsplit) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int d = idx % hd, row = idx / hd;
-  const int b = row / hq, qh = row % hq;
-  const int g_size = hq / hkv, h = qh / g_size, g = qh % g_size;
-  const size_t base = ((size_t)b * hkv + h) * nsplit;
-  float m_max = kNegInf;
-  for (int s = 0; s < nsplit; ++s)
-    m_max = fmaxf(m_max, m_part[(base + s) * g_size + g]);
-  float l_tot = 0.f, o_tot = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const size_t r = (base + s) * g_size + g;
-    const float w = expf(m_part[r] - m_max);
-    l_tot += w * l_part[r];
-    o_tot += w * o_part[r * hd + d];
+  // every split's state is in place
+  if (clustered) cluster.sync(); else __syncthreads();
+  auto peer_state = [&](int s) {
+    return clustered ? cluster.map_shared_rank(&state, s) : &state;
+  };
+  auto peer_acc = [&](int s) { return clustered ? cluster.map_shared_rank(acc, s) : acc; };
+  if (tid < g_size) {
+    float mx = warp_walk::kNegInf;
+    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, peer_state(s)->m[tid]);
+    float lsum = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const warp_walk::CtaState* peer = peer_state(s);
+      const float w = expf(peer->m[tid] - mx);
+      weight[s][tid] = w;
+      lsum += w * peer->l[tid];
+    }
+    inv_l[tid] = __fdividef(1.f, fmaxf(lsum, 1e-20f));
   }
-  paged::store(out + idx, o_tot / fmaxf(l_tot, 1e-20f));
+  __syncthreads();
+  // this CTA's slice of the row's G x HD outputs
+  T* orow = out + ((size_t)b * hq + (size_t)h * g_size) * HD;
+  for (int e = split * paged::kThreads + tid; e < g_size * HD;
+       e += nsplit * paged::kThreads) {
+    const int g = e / HD;
+    float o = 0.f;
+    for (int s = 0; s < nsplit; ++s) o += weight[s][g] * peer_acc(s)[e];
+    paged::store(orow + e, o * inv_l[g]);
+  }
+  if (clustered) cluster.sync();           // peers are done reading this CTA
 }
 
 template <typename T, int HD>
-void launch_partial(const void* q, const void* k, const void* v, const int* bt,
-                    const int* cl, float* o, float* m, float* l, int b, int hq,
-                    int hkv, int bs, int nblk, int nsplit, cudaStream_t st) {
-  const dim3 grid(nsplit, hkv, b);
-  splitk_partial_kernel<T, HD><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, cl, o, m, l, hq, hkv, bs, nblk,
-      1.0f / sqrtf(static_cast<float>(HD)));
+int launch_hd(const void* q, const void* k, const void* v, const int* bt, const int* cl,
+              void* out, int b, int hq, int hkv, int bs, int nblk, int nsplit,
+              cudaStream_t st) {
+  constexpr size_t smem = smem_bytes<T, HD>();
+  static bool attr_set = false;            // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        splitk_cluster_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, hkv, b);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nsplit > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, splitk_cluster_kernel<T, HD>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), bt, cl, static_cast<T*>(out),
+      hq, hkv, bs, nblk, 1.0f / sqrtf(static_cast<float>(HD)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* bt,
-           const int* cl, float* o, float* m, float* l, void* out, int b,
-           int hq, int hkv, int hd, int bs, int nblk, int nsplit,
+int launch(const void* q, const void* k, const void* v, const int* bt, const int* cl,
+           void* out, int b, int hq, int hkv, int hd, int bs, int nblk, int nsplit,
            cudaStream_t st) {
   switch (hd) {
-    case 16: launch_partial<T, 16>(q, k, v, bt, cl, o, m, l, b, hq, hkv, bs, nblk, nsplit, st); break;
-    case 32: launch_partial<T, 32>(q, k, v, bt, cl, o, m, l, b, hq, hkv, bs, nblk, nsplit, st); break;
-    case 64: launch_partial<T, 64>(q, k, v, bt, cl, o, m, l, b, hq, hkv, bs, nblk, nsplit, st); break;
-    case 128: launch_partial<T, 128>(q, k, v, bt, cl, o, m, l, b, hq, hkv, bs, nblk, nsplit, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_hd<T, 16>(q, k, v, bt, cl, out, b, hq, hkv, bs, nblk, nsplit, st);
+    case 32: return launch_hd<T, 32>(q, k, v, bt, cl, out, b, hq, hkv, bs, nblk, nsplit, st);
+    case 64: return launch_hd<T, 64>(q, k, v, bt, cl, out, b, hq, hkv, bs, nblk, nsplit, st);
+    case 128: return launch_hd<T, 128>(q, k, v, bt, cl, out, b, hq, hkv, bs, nblk, nsplit, st);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = b * hq * hd;
-  splitk_merge_kernel<T><<<(total + 255) / 256, 256, 0, st>>>(
-      o, m, l, static_cast<T*>(out), total, hq, hkv, hd, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // C entry. The wrapper (repro_torch/kernels/paged_attention.py) has checked
-// shapes, dtypes, contiguity, alignment, G <= 8, bs in {4, 8, 16} and
-// hd in {16, 32, 64, 128}. Returns the cudaError_t of the two launches.
+// shapes, dtypes, contiguity, alignment, G <= 8, bs in {4, 8, 16},
+// hd in {16, 32, 64, 128} and 1 <= nsplit <= 8. Returns the cudaError_t of
+// the launch.
 extern "C" int paged_attention_splitk(const void* q, const void* k_pages,
-                                      const void* v_pages,
-                                      const void* block_tables,
-                                      const void* ctx_lens, void* o_part,
-                                      void* m_part, void* l_part, void* out,
-                                      int b, int hq, int hkv, int hd, int bs,
-                                      int nblk, int nsplit,
+                                      const void* v_pages, const void* block_tables,
+                                      const void* ctx_lens, void* out, int b, int hq,
+                                      int hkv, int hd, int bs, int nblk, int nsplit,
                                       int is_bf16, void* stream) {
+  if (nsplit < 1 || nsplit > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto bt = static_cast<const int*>(block_tables);
   const auto cl = static_cast<const int*>(ctx_lens);
-  const auto o = static_cast<float*>(o_part);
-  const auto m = static_cast<float*>(m_part);
-  const auto l = static_cast<float*>(l_part);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, o, m, l, out, b,
-                                 hq, hkv, hd, bs, nblk, nsplit, st);
-  return launch<float>(q, k_pages, v_pages, bt, cl, o, m, l, out, b, hq, hkv,
-                       hd, bs, nblk, nsplit, st);
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, bt, cl, out, b, hq, hkv, hd, bs,
+                                 nblk, nsplit, st);
+  return launch<float>(q, k_pages, v_pages, bt, cl, out, b, hq, hkv, hd, bs, nblk,
+                       nsplit, st);
 }

@@ -1,15 +1,19 @@
-// A warp-split walk over one row's KV pages with the pages in flight,
-// Hopper sm_90a: the bf16 decode attention of one (kv head h, sequence b) in
-// one CTA, used by the legacy kernel (paged_attention.cu; its float32
-// instantiation walks with paged_attention_common.cuh instead).
+// A warp-split walk over a range of one row's 16-token tiles with the pages
+// in flight, Hopper sm_90a: the bf16 decode attention of one (kv head h,
+// sequence b) in one CTA. Both paged decode kernels walk with it: the
+// legacy kernel (paged_attention.cu) over all of a row's tiles, split-K
+// (paged_attention_splitk.cu) over one split's share. Their float32
+// instantiations walk with paged_attention_common.cuh instead.
 //
-// The CTA's kWarps warps divide the row's live tokens (those < ctx, in the
+// The CTA's kWarps warps divide the range's live tokens (those < ctx, in the
 // pages the table lists; a page at or past the context is never touched)
 // into contiguous shares of whole tiles of 16 tokens. Each warp walks its
 // share with its own float32 online softmax (m, l, acc) for the G query
 // rows, and the CTA combines the warps' states by log-sum-exp in shared
-// memory at the end: the merge split-K does across launches, inside one
-// CTA. Per warp:
+// memory at the end. The walk leaves the CTA's state unnormalised: acc
+// (G, HD) float32 at the start of the dynamic shared memory and (m, l) per
+// query row in a CtaState, so the caller normalises it (legacy) or merges
+// it with other CTAs' states first (split-K). Per warp:
 //   * a ring of kStages tiles (K and V) in shared memory, filled with
 //     16-byte cp.async.cg, so the next kStages - 1 tiles are in flight while
 //     one is multiplied; rows are padded by 16 bytes, so lanes reading
@@ -28,8 +32,8 @@
 // No copy is issued, and no table entry read, for a page at or past the
 // context, so table entries past the context may point anywhere; the rows
 // of a tile past the live tokens (ctx, or the table's nblk * bs if that is
-// less) are zero-filled without a load and masked. A warp without tokens
-// contributes (acc 0, m -1e30, l 0), the identity of the merge, and a row
+// less) are zero-filled without a load and masked. A warp or CTA without
+// tokens leaves (acc 0, m -1e30, l 0), the identity of the merge, and a row
 // with ctx = 0 comes out as zeros. Layouts: q (B,Hq,hd); k/v pages
 // (P,bs,Hkv,hd); scale 1/sqrt(hd).
 
@@ -79,13 +83,21 @@ struct MergeState {
   float l[kWarps][kMaxG];
 };
 
-// Combine the warps' (m, l, acc) by log-sum-exp, normalise, cast, store the
-// G rows at orow. acc_s is (kWarps, kMaxG, HD) float.
+// The CTA's state after a walk: (m, l) per query row; acc lives at the
+// start of the dynamic shared memory as (kMaxG, HD) float32.
+struct CtaState {
+  float m[kMaxG];
+  float l[kMaxG];
+};
+
+// Combine the warps' (m, l, acc) by log-sum-exp into the CTA's state, acc
+// in place over warp 0's slot of acc_s ((kWarps, kMaxG, HD) float: each
+// element is read and written by one thread only).
 template <int HD, int kWarps>
-__device__ __forceinline__ void combine(const MergeState<kWarps>& st, const float* acc_s,
-                                        bf16* orow, int g_size) {
+__device__ __forceinline__ void combine(const MergeState<kWarps>& st, float* acc_s,
+                                        CtaState& out, int g_size) {
   for (int e = threadIdx.x; e < g_size * HD; e += kWarps * 32) {
-    const int g = e / HD, d = e % HD;
+    const int g = e / HD;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, st.m[w][g]);
@@ -94,9 +106,13 @@ __device__ __forceinline__ void combine(const MergeState<kWarps>& st, const floa
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(st.m[w][g] - mx);
       lsum += st.l[w][g] * f;
-      o += acc_s[((size_t)w * kMaxG + g) * HD + d] * f;
+      o += acc_s[(size_t)w * kMaxG * HD + e] * f;
     }
-    orow[e] = __float2bfloat16(__fdividef(o, fmaxf(lsum, 1e-20f)));
+    acc_s[e] = o;
+    if (e % HD == 0) {
+      out.m[g] = mx;
+      out.l[g] = lsum;
+    }
   }
 }
 
@@ -123,12 +139,17 @@ __device__ __forceinline__ float col_sum(float v) {
 // grp + 8 in c[2..3], at columns (query rows) 2 quad and 2 quad + 1. So a
 // lane's m and l are those of query rows 2 quad + {0, 1}, the same columns
 // as its accumulator entries.
+//
+// Walks tiles [t_begin, t_end) of row b's n_tok live tokens (n_tok =
+// min(ctx, nblk * bs); tile t holds tokens 16 t .. 16 t + 15) and leaves the
+// CTA's unnormalised state in ``state`` and at the start of ``smem``, after
+// a __syncthreads.
 template <int HD, int kWarps>
-__device__ __forceinline__ void attend_row_mma(
+__device__ __forceinline__ void walk_tiles(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const int* __restrict__ pages,
-    bf16* __restrict__ out, int b, int h, int hq, int hkv, int bs, int ctx, int nblk,
-    float scale, unsigned char* smem) {
+    const bf16* __restrict__ v_pages, const int* __restrict__ pages, int b, int h,
+    int hq, int hkv, int bs, int n_tok, int t_begin, int t_end, float scale,
+    unsigned char* smem, CtaState& state) {
   constexpr int kRow = row_elems<HD>();
   constexpr int kKS = HD / 16;             // k-steps of K Q^T; d tiles of O^T
   constexpr int kCh = HD / 8;              // 16-byte chunks per token row
@@ -149,13 +170,11 @@ __device__ __forceinline__ void attend_row_mma(
     qf[s][1] = grp < g_size ? *reinterpret_cast<const uint32_t*>(qrow + 16 * s + 8) : 0u;
   }
 
-  // this warp's share of the tiles of live tokens
-  const int n_tok = min(max(ctx, 0), nblk * bs);
+  // this warp's share of the range's tiles
   const int live = (n_tok + bs - 1) / bs;                 // live pages
-  const int tiles = (n_tok + kTile - 1) / kTile;
-  const int share = (tiles + kWarps - 1) / kWarps;
-  const int t_first = min(warp * share, tiles);
-  const int n = min(t_first + share, tiles) - t_first;
+  const int share = (t_end - t_begin + kWarps - 1) / kWarps;
+  const int t_first = min(t_begin + warp * share, t_end);
+  const int n = min(t_first + share, t_end) - t_first;
   const int ppt = kTile / bs;                             // pages per tile
   const int p_first = t_first * ppt;
   const int* wpages = pages + p_first;
@@ -265,8 +284,8 @@ __device__ __forceinline__ void attend_row_mma(
     }
   }
   __syncthreads();
-  combine<HD, kWarps>(st, acc_s, out + ((size_t)b * hq + (size_t)h * g_size) * HD,
-                      g_size);
+  combine<HD, kWarps>(st, acc_s, state, g_size);
+  __syncthreads();
 }
 
 }  // namespace warp_walk

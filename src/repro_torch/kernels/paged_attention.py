@@ -23,7 +23,16 @@ HEAD_DIMS = (16, 32, 64, 128)
 PAGE_SIZES = (4, 8, 16)
 MAX_GROUP = 8          # query heads per kv head the kernel holds on chip
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# split-K's launch: the splits of one (sequence, kv head) form one thread-
+# block cluster, at most the portable cluster size; a split's four warps
+# walk 16-token tiles (csrc/paged_warp_walk.cuh)
+MAX_SPLITS = 8
+TILE_TOKENS = 16
+WALK_WARPS = 4
+TILES_PER_WARP = 8       # a few tiles past the three in flight in a warp's ring
+RESIDENT_CTAS_PER_SM = 4  # 52 KB of rings a CTA at hd 128: four fit an SM
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _LEGACY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -32,13 +41,17 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def default_num_splits(b: int, hkv: int, nblk: int, num_sms: int) -> int:
-    """Enough splits for about two waves of CTAs on the card: the
-    (sequence, kv head) pairs alone leave SMs idle at small batch. The
-    kernel divides each row's live pages among them, so a split never
-    holds more than its share of a short context."""
-    want = -(-2 * num_sms // max(b * hkv, 1))
-    return max(1, min(nblk, want))
+def default_num_splits(b: int, hkv: int, nblk: int, bs: int, num_sms: int) -> int:
+    """Splits of each row for split-K. Each split's warps should have a
+    few tiles each behind the ones in flight (the table's nblk * bs tokens
+    are the host's upper bound of a row), the B * Hkv * nsplit CTAs should
+    stay within about two waves of resident CTAs, and a row's splits form
+    one cluster. At the serve's table width (32 pages of 16) that is one
+    split; splitting is for long contexts at small batch."""
+    tiles = -(-nblk * bs // TILE_TOKENS)
+    by_work = tiles // (WALK_WARPS * TILES_PER_WARP)
+    by_card = 2 * num_sms * RESIDENT_CTAS_PER_SM // max(b * hkv, 1)
+    return max(1, min(by_work, by_card, MAX_SPLITS))
 
 
 def _check(q, k_pages, v_pages, block_tables, ctx_lens):
@@ -75,11 +88,11 @@ def paged_attention_splitk(q, k_pages, v_pages, block_tables, ctx_lens, *,
     """q (B,Hq,hd); k/v_pages (P,bs,Hkv,hd); block_tables (B,nblk) int32;
     ctx_lens (B,) int32 -> (B,Hq,hd) in q's dtype.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel:
-    each row's live pages in ``num_splits`` equal shares (by default
-    enough for two waves of CTAs), an unnormalised float32 partial per
-    share, then a log-sum-exp merge. A row with ctx = 0 comes out as
-    zeros."""
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    once: each row's live tiles in ``num_splits`` (1 to 8; by default
+    ``default_num_splits``) equal shares, one CTA each, the row's CTAs one
+    cluster that merges their states by log-sum-exp in shared memory. A
+    row with ctx = 0 comes out as zeros."""
     if q.device.type == "cpu":
         return ref_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
     if q.device.type != "cuda":
@@ -90,18 +103,14 @@ def paged_attention_splitk(q, k_pages, v_pages, block_tables, ctx_lens, *,
     b, hq, hd = q.shape
     _, bs, hkv, _ = k_pages.shape
     nblk = block_tables.shape[1]
-    g = hq // hkv
     nsplit = num_splits or default_num_splits(
-        b, hkv, nblk, _num_sms(q.device.index or 0))
-    nsplit = max(1, min(nsplit, nblk))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((b, hkv, nsplit, g, hd), **f32)
-    m_part = torch.empty((b, hkv, nsplit, g), **f32)
-    l_part = torch.empty((b, hkv, nsplit, g), **f32)
+        b, hkv, nblk, bs, _num_sms(q.device.index or 0))
+    if not 1 <= nsplit <= MAX_SPLITS:
+        raise ValueError(f"num_splits must be 1..{MAX_SPLITS} (one cluster), "
+                         f"got {nsplit}")
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), ctx_lens.data_ptr(), o_part.data_ptr(),
-             m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
              b, hq, hkv, hd, bs, nblk, nsplit,
              int(q.dtype == torch.bfloat16),
              torch.cuda.current_stream(q.device).cuda_stream)

@@ -3,7 +3,9 @@ wrapper.
 
 The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan``; its source note says what bounds
-it on the card (float32 operations) and how the design answers that. Its
+it on the card and how the design answers that (the products on the
+tensor cores in 3xTF32, the next chunk in flight, C·Bᵀ shared by the P
+slices of a head). Its
 plain version is ``ssd_chunked``, the port of ``repro/models/ssm.py``'s
 ``ssd_chunked``: a CPU tensor goes there, a CUDA tensor goes to the kernel
 or the call raises. Both take an initial state and can return the state
@@ -101,15 +103,22 @@ def _num_sms(device_index: int) -> int:
 
 
 def p_slice(b: int, h: int, p: int, num_sms: int) -> int:
-    """Rows of the state one CTA carries. The (batch, head) pairs alone
-    leave SMs idle at batch 1 (64 heads on 132 SMs), and a state row
-    evolves independently of the others, so the rows are split while the
-    CTA count stays within one wave. Each split repeats the chunk's C·Bᵀ
-    product, so the split stops there."""
-    ps = p
-    while ps > 4 and 2 * b * h * (p // ps) <= num_sms:
-        ps //= 2
-    return ps
+    """Rows of the state one CTA carries. The kernel has one CTA of 16
+    warps an SM (a chunk of B, C and x double-buffered fills its shared
+    memory), and the P slices of a head form a cluster that shares the
+    chunk's C·Bᵀ, so more slices cost little: 16 rows when that still fits
+    one wave of CTAs, else 32. A head of at most 16 rows is one CTA, padded
+    with zeros below 16."""
+    if p <= 16:
+        return 16
+    return 16 if b * h * (p // 16) <= num_sms else 32
+
+
+def _aligned(t):
+    """``t`` contiguous float32 at a 16-byte aligned address (the kernel
+    copies rows with 16-byte cp.async and stores 16 bytes at a time)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(x, dt_a, b_mat, c_mat, chunk, initial_state):
@@ -144,8 +153,10 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
     (B,H,P,N) fp32[, states after each chunk (B,S/chunk,H,P,N) fp32]).
 
     CPU tensors run the plain chunked version. CUDA tensors launch the
-    kernel, on operands cast to contiguous float32 as the plain version
-    casts them (B and C come in the model's dtype)."""
+    kernel once, on operands cast to contiguous float32 as the plain
+    version casts them (B and C come in the model's dtype): one CTA per
+    (batch, head, ``p_slice`` rows of the state), the slices of a head one
+    cluster."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt_a, b_mat, c_mat, chunk,
                            initial_state=initial_state,
@@ -154,9 +165,9 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
         raise ValueError(f"no SSD scan for device {x.device}")
     fn = build.kernel_fn("ssd_scan", "ssd_scan", _ARGTYPES)
     _check(x, dt_a, b_mat, c_mat, chunk, initial_state)
-    x, dt_a, b_mat, c_mat = (t.float().contiguous() for t in (x, dt_a, b_mat, c_mat))
+    x, dt_a, b_mat, c_mat = (_aligned(t) for t in (x, dt_a, b_mat, c_mat))
     if initial_state is not None:
-        initial_state = initial_state.float().contiguous()
+        initial_state = _aligned(initial_state)
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     nc = s // chunk

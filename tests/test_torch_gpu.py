@@ -52,6 +52,10 @@ PAGED_DECODE_CASES = [
     # contexts past the table's nblk * bs tokens: only the table's keys count
     (3, 8, 2, 64, 4, 3, [20, 12, 9]),
     (2, 4, 1, 32, 8, 3, [30, 24]),
+    # long context at small batch: split-K's default takes a full cluster
+    (2, 32, 8, 128, 16, 512, [8192, 0]),
+    # two live tiles: with 8 splits most splits walk nothing
+    (1, 32, 8, 128, 16, 32, [20]),
 ]
 CHUNKED_CASES = [
     (64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37), (32, 64, 2, 1, 64, 30),
@@ -65,10 +69,12 @@ CHUNKED_CASES = [
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
-# at batch 1 (the serve's spans are S 64 and 128)
+# at batch 1 (the serve's spans are S 64 and 128) and beyond
 SSD_CASES = [
     (2, 64, 2, 8, 4, 16), (1, 128, 4, 16, 8, 32), (3, 32, 1, 4, 16, 16),
     (1, 64, 64, 64, 128, 64), (1, 128, 64, 64, 128, 64), (1, 512, 64, 64, 128, 64),
+    (2, 256, 64, 64, 128, 64),    # batch 2, four chunks through the double buffer
+    (1, 96, 8, 64, 128, 32),      # chunk 32 at mamba2's widths: 16-row slices
 ]
 
 
@@ -93,7 +99,7 @@ def _assert_rel_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", PAGED_DECODE_CASES)
-@pytest.mark.parametrize("num_splits", [1, 2, 4, None])
+@pytest.mark.parametrize("num_splits", [1, 2, 4, 8, None])
 def test_paged_kernel_matches_plain(cuda, dtype, case, num_splits):
     b, hq, hkv, hd, bs, nblk, ctx = case
     rng = np.random.default_rng(b * 7 + hq)

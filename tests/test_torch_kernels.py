@@ -15,7 +15,7 @@ from repro.kernels.paged_attention import paged_attention_splitk as pallas_split
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    default_num_splits, paged_attention_splitk)
+    MAX_SPLITS, default_num_splits, paged_attention_splitk)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -148,11 +148,25 @@ def test_padded_decode_row_is_finite():
                                rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("b,hkv,nblk,want_splits", [
-    (1, 8, 32, 32),     # one sequence: as many splits as pages
-    (8, 8, 32, 5),      # 64 CTAs per split: ceil(264 / 64) splits
-    (32, 8, 32, 2),     # 256 (sequence, head) CTAs: two splits
-    (64, 8, 32, 1),     # already two waves without splitting
+@pytest.mark.parametrize("b,hkv,nblk,bs,want_splits", [
+    (8, 8, 32, 16, 1),      # the serve's table: 32 tiles, one a warp-stage of 8
+    (32, 8, 32, 16, 1),     # a full batch at the serve's table width
+    (1, 8, 32, 16, 1),      # one short sequence: splitting leaves warps idle
+    (1, 8, 128, 16, 4),     # 128 tiles: 4 splits give each warp 8 tiles
+    (2, 8, 512, 16, 8),     # long context at small batch: the cluster limit
+    (64, 8, 512, 16, 2),    # 512 CTAs a split: two waves of 4 a SM allow 2
+    (1, 1, 64, 4, 1),       # 16 tiles of 4-token pages: fewer than 32
+    (1, 1, 4096, 16, 8),    # 4096 tiles, 1056 CTAs fit: still one cluster
 ])
-def test_default_split_fills_two_waves(b, hkv, nblk, want_splits):
-    assert default_num_splits(b, hkv, nblk, num_sms=132) == want_splits
+def test_default_split_fills_two_waves(b, hkv, nblk, bs, want_splits):
+    assert default_num_splits(b, hkv, nblk, bs, num_sms=132) == want_splits
+
+
+@pytest.mark.parametrize("b,hkv,nblk,bs", [
+    (1, 1, 1 << 16, 16), (1, 8, 8192, 16), (4, 2, 1 << 14, 8), (1, 1, 1 << 15, 4)])
+def test_default_split_stays_in_one_cluster(b, hkv, nblk, bs):
+    """The splits of a row form one thread-block cluster: never more than
+    the portable cluster size, however long the table or idle the card."""
+    assert default_num_splits(b, hkv, nblk, bs, num_sms=132) == MAX_SPLITS
+    for sms in (1, 16, 132, 1000):
+        assert 1 <= default_num_splits(b, hkv, nblk, bs, num_sms=sms) <= MAX_SPLITS

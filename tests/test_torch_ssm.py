@@ -114,10 +114,14 @@ def test_plain_version_counts_no_launch():
 
 
 @pytest.mark.parametrize("b,h,p,sms,want", [
-    (1, 64, 64, 132, 32),    # mamba2-1.3b at batch 1: 128 CTAs
-    (1, 32, 16, 132, 4),     # reduced: 128 CTAs
-    (8, 64, 64, 132, 64),    # enough (batch, head) pairs already
-    (2, 2, 8, 132, 4),       # never below 4 rows
+    (1, 64, 64, 132, 32),    # mamba2-1.3b at batch 1: 128 CTAs; 16 rows need 256
+    (1, 32, 64, 132, 16),    # 128 CTAs of 16 rows still fit one wave
+    (1, 33, 64, 132, 16),    # exactly one CTA an SM
+    (1, 34, 64, 132, 32),    # one CTA past the wave: back to 32 rows
+    (8, 64, 64, 132, 32),    # never wider than 32 rows, a cluster of 2 a head
+    (2, 2, 8, 132, 16),      # P below 16: one CTA a head, padded with zeros
+    (1, 4, 16, 132, 16),     # P 16: one CTA a head
+    (1, 8, 64, 8, 32),       # a card of 8 SMs: 32 rows already fill it
 ])
 def test_p_slice_fills_one_wave(b, h, p, sms, want):
     assert ssd_mod.p_slice(b, h, p, sms) == want
