@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      nvcc for sm_90a, one process per source, all started together (seconds,
      and ptxas' registers / shared memory / spills; the redesigned kernels
      (bf16 tensor-core prefill, warp-split legacy decode, clustered split-K
-     decode, 3xTF32 SSD scan) must not spill);
+     decode, 3xTF32 SSD scan, the RG-LRU scan's shared-memory ring) must
+     not spill);
   3. attention kernels (split-K and legacy warp-split decode, chunked
      prefill) against their plain PyTorch versions on the card, at the main
      path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at long
@@ -50,9 +51,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
  11. the RG-LRU scan kernel against its plain version: the cases of
      tests/test_kernels.py in float32, and the hybrid path's shapes (B 1
      and 4, W 4096, S 1 / 37 / 128 / 2085 / 3072, a from the model's gate) from
-     float32 and bfloat16 inputs;
- 12. RG-LRU kernel time at B 1, W 4096, S 128 and 3072 beside its bound and
-     the plain version's time (no single PyTorch call computes it);
+     float32 and bfloat16 inputs; S one step either side of a slab (127,
+     129, 255, 257), S 8192 (round the ring many times), ragged channel
+     tiles (W 4104, 4112) and a view that starts one element into its
+     buffer;
+ 12. RG-LRU kernel time at B 1, W 4096, S 128 and 3072 beside its bound, the
+     floor (an empty launch of the same grid and shared memory), a + b
+     into h (the same bytes through one PyTorch elementwise kernel), its
+     PR 15 time and the plain version's (no single PyTorch call computes
+     it), with the rate it reaches;
  13. serve full-width recurrentgemma-9b (38 layers, bf16, seeded random
      weights) through ``EchoEngine`` and the state-snapshot runner, token by
      token as the JAX runner does: every request finishes, snapshot prefix
@@ -62,9 +69,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      blockwise attention branch), ``pad_cache`` onto the window ring and
      decode steps; held against the prompt stepped token by token and
      against a float32 copy of the model (in float32 to 1e-4; in bf16 to
-     limits set from the rounding both paths show); then a profile of a
-     prefill and of engine decode steps, one of them storing a
-     block-boundary snapshot;
+     limits set from the rounding both paths show); then a profile of the
+     S 128 and S 3072 prefills (26 RG-LRU kernel launches each) and of
+     engine decode steps, one of them storing a block-boundary snapshot;
  15. token parity of a tiny float32 hybrid (5 layers, window 8) between the
      CPU, the card, the card with host-tier swap, and the card's dense path.
 
@@ -95,6 +102,7 @@ from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     default_num_splits, paged_attention, paged_attention_splitk)
+from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -124,6 +132,10 @@ DEV = "cuda"
 # profiler traces
 PREFILL_TC, LEGACY_DECODE = "chunked_prefill_tc_kernel", "paged_warp_split_kernel"
 SPLITK_DECODE, SSD_KERNEL = "splitk_cluster_kernel", "ssd_scan_tc_kernel"
+RGLRU_KERNEL = "rglru_ring_kernel"
+# the RG-LRU kernel's phase 12 times before its redesign (PR 15's runs on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), by S
+RGLRU_PR15_MS = {128: 0.0192, 3072: 0.0949}
 # the long-context decode shape split-K's clusters exist for: B 2 at
 # contexts 8192 and 5000 over 512-page tables (54.0 MB of K/V)
 LONG_CTX, LONG_NBLK = [8192, 5000], 512
@@ -234,7 +246,8 @@ def phase_build():
     # the redesigned kernels must not spill (ptxas' report exists only for
     # a library built in this run)
     for lib, kern in (("chunked_prefill", PREFILL_TC), ("paged_attention", LEGACY_DECODE),
-                      ("paged_attention_splitk", SPLITK_DECODE), ("ssd_scan", SSD_KERNEL)):
+                      ("paged_attention_splitk", SPLITK_DECODE), ("ssd_scan", SSD_KERNEL),
+                      ("rglru_scan", RGLRU_KERNEL)):
         entry, found = "", []
         for line in build.build_log[lib].splitlines():
             if "Compiling entry" in line:
@@ -928,15 +941,25 @@ def rglru_inputs(gen, b, s, w, dtype=torch.float32, gate=True):
 def phase_rglru_kernel(gen):
     phase("11 RG-LRU kernel vs plain version")
     err = 0.0
-    # (b, s, w, gate, tol): tests/test_kernels.py's sweep in float32, then
-    # the hybrid path's shapes from both input types; S covers one chunk,
-    # whole and ragged chunk counts, and the 32-chunk cap (S > 2048)
-    cases = [(2, 64, 32, False, 2e-5), (1, 128, 64, False, 2e-5),
-             (3, 32, 16, False, 2e-5)]
-    cases += [(b, s, W, True, 1e-4) for b in (1, 4) for s in (1, 37, 128, 2085, 3072)]
-    for b, s, w, gate, tol in cases:
+    # (b, s, w, gate, tol, offset): tests/test_kernels.py's sweep in
+    # float32, then the hybrid path's shapes from both input types; S
+    # covers one slab (128 steps in float32, 256 in bfloat16), one step
+    # either side of a slab, ragged last slabs and many turns of the ring;
+    # W 4104 and 4112 leave a ragged tile of 8 and 16 channels; offset 1
+    # makes a and b views that start one element into their buffers
+    cases = [(2, 64, 32, False, 2e-5, 0), (1, 128, 64, False, 2e-5, 0),
+             (3, 32, 16, False, 2e-5, 0)]
+    cases += [(b, s, W, True, 1e-4, 0) for b in (1, 4) for s in (1, 37, 128, 2085, 3072)]
+    cases += [(1, s, W, True, 1e-4, 0) for s in (127, 129, 255, 257, 8192)]
+    cases += [(1, 300, w, True, 1e-4, 0) for w in (4104, 4112)]
+    cases += [(1, 128, W, True, 1e-4, 1)]
+    for b, s, w, gate, tol, offset in cases:
         for dtype in ((torch.float32,) if not gate else (torch.float32, torch.bfloat16)):
             a, bb = rglru_inputs(gen, b, s, w, dtype, gate)
+            if offset:
+                a, bb = (torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(b, s, w)
+                         for x in (a, bb))
+                check(a.data_ptr() % 16 != 0, "the offset view is aligned")
             got = rglru_scan(a, bb)
             want = ref.ref_rglru_scan(a, bb)
             check(got.shape == want.shape and got.dtype == torch.float32,
@@ -945,8 +968,8 @@ def phase_rglru_kernel(gen):
             rel = float(torch.linalg.vector_norm(got - want)
                         / torch.linalg.vector_norm(want))
             ok = bool(torch.allclose(got, want, rtol=tol, atol=tol)) and rel < 1e-5
-            print(f"  rglru b={b} s={s} w={w} {str(dtype)[6:]} "
-                  f"{'gate' if gate else 'sigmoid'}: max_abs_err={e:.3e} tol={tol:g} "
+            print(f"  rglru b={b} s={s} w={w}{' offset 1' if offset else ''} "
+                  f"{str(dtype)[6:]} {'gate' if gate else 'sigmoid'}: max_abs_err={e:.3e} tol={tol:g} "
                   f"rel_err={rel:.3e} rel_tol=1e-05 {'ok' if ok else 'MISMATCH'}")
             check(ok, "the RG-LRU kernel disagrees with its plain version")
             err = max(err, e)
@@ -956,13 +979,21 @@ def phase_rglru_kernel(gen):
 
 def phase_rglru_timing(gen, err):
     """The RG-LRU scan as ``Model.prefill`` runs it: float32 a and b from
-    the gates, batch 1, the LRU width; a short and a long prompt."""
+    the gates, batch 1, the LRU width; a short and a long prompt. Beside
+    the kernel: the floor (an empty kernel on the same grid, block and
+    shared memory, under the same harness), a + b into h (the same bytes
+    through one PyTorch elementwise kernel) and the kernel's PR 15 time
+    (the builders' runs on this card type, ``PERF.md``)."""
     phase("12 RG-LRU kernel time")
     rows = []
     for s in (128, 3072):
         a, bb = rglru_inputs(gen, 1, s, W)
         nbytes = 3 * 4 * s * W                     # a, b in; h out; float32
         t_bound, by = bound(nbytes, 2 * s * W, torch.float32)
+        plan = rglru_mod.rglru_plan(1, s, W, torch.float32)
+        out = torch.empty_like(a)
+        floor = time_ms(lambda: rglru_mod.empty_launch(1, W, plan, DEV))
+        add_ms = time_ms(lambda: torch.add(a, bb, out=out))
         rows.append(dict(
             name="rglru_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -972,8 +1003,11 @@ def phase_rglru_timing(gen, err):
             plain_ms=time_ms(lambda: ref.ref_rglru_scan(a, bb), iters=10, warmup=1),
             library_ms=None, bound_ms=t_bound, bound_by=by, max_abs_err=err))
         r = rows[-1]
-        print(f"  rglru_scan [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
-              f"{t_bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB), plain "
+        print(f"  rglru_scan [{r['shape']}] ({plan.slabs} slab(s) of {plan.rows} steps, "
+              f"{plan.stages} stage(s), {plan.grid[0] * plan.grid[1]} CTAs): kernel "
+              f"{r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s), bound {t_bound:.4f} "
+              f"ms ({by}: {nbytes / 1e6:.2f} MB), floor {floor:.4f} ms, a + b into h "
+              f"{add_ms:.4f} ms, PR 15 {RGLRU_PR15_MS[s]:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library none (no single PyTorch call "
               f"computes a linear recurrence)")
     return rows
@@ -1153,16 +1187,21 @@ def phase_dense_hybrid(model, params, eng, prompt):
     toks128 = torch.arange(128, device=DEV)[None]
     spare = list(range(R_BLOCKS - 4, R_BLOCKS))
 
-    def prefill128():
+    def prefill(t):
         with torch.inference_mode():
-            return model.prefill(params, toks128)
-    _profile_steps({
-        "Model.prefill S=128": prefill128,
+            return model.prefill(params, t)
+    traces = _profile_steps({
+        "Model.prefill S=128": lambda: prefill(toks128),
+        f"Model.prefill S={s}": lambda: prefill(toks),
         "engine decode step, one request at pos 64": lambda: eng.runner.decode(
             [1], [spare], [64], rids=[-1]),
         "the same at pos 63, storing a block-boundary snapshot":
             lambda: eng.runner.decode([1], [spare], [R_BLOCK * 2 - 1], rids=[-1]),
-    }, ("rglru_scan_kernel",), "RG-LRU kernel")
+    }, (RGLRU_KERNEL,), "RG-LRU kernel")
+    for n in (128, s):
+        got = _launches(traces[f"Model.prefill S={n}"], (RGLRU_KERNEL,))
+        check(got == R_LAYERS_RGLRU,
+              f"the S {n} prefill's trace shows {got} {RGLRU_KERNEL} launches")
     return launches
 
 

@@ -1,7 +1,8 @@
 // Inline-PTX wrappers for sm_80+ tensor-core kernels, shared by the bf16
 // chunked-prefill kernel (chunked_prefill.cu) and the legacy decode walk
 // (paged_warp_walk.cuh): 16-byte cp.async into shared memory, ldmatrix and
-// mma.sync.m16n8k16 with bf16 inputs and float32 accumulators.
+// mma.sync.m16n8k16 with bf16 inputs and float32 accumulators. The RG-LRU
+// scan (rglru_scan.cu) takes its cp.async wrappers from here too.
 
 #pragma once
 

@@ -1,25 +1,65 @@
-"""RG-LRU linear-recurrence scan: the CUDA kernel's wrapper.
+"""RG-LRU linear-recurrence scan: the CUDA kernel's wrapper and launch plan.
 
 The kernel (``csrc/rglru_scan.cu``) replaces the TPU kernel
 ``repro/kernels/rglru_scan.py::rglru_scan``; its source note says what
-bounds it on the card (bytes, and at batch 1 the latency of one channel's
-chain of steps) and how the design answers that. Its plain version is
+bounds it on the card (bytes) and how the design answers that: a CTA owns
+32 channels and streams the whole sequence once through a ring of
+shared-memory slabs, so a and b are read from device memory once.
+``rglru_plan`` picks the slabs and the ring. Its plain version is
 ``ref.ref_rglru_scan``, the token-by-token recurrence: a CPU tensor goes
 there, a CUDA tensor goes to the kernel or the call raises.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_rglru_scan
 
-CHUNK = 64               # steps per chunk while S <= CHUNK * MAX_CHUNKS
-MAX_CHUNKS = 32          # sequence chunks per channel: warps per CTA
+CHANNELS = 32            # channels a CTA owns: one per lane
+WARPS = 16               # sub-chunks of a slab, one per warp: 512 threads a CTA
+SLAB_BYTES = 32 << 10    # a and b of one slab
+STAGES = 2               # ring buffers when S takes more than one slab
+SMEM_LIMIT = 232448      # shared memory a CTA may use on Hopper
+STATIC_SMEM = 2 * WARPS * (CHANNELS + 1) * 4   # the kernel's (p, e) arrays
+ROW_ALIGN = 16           # bytes: the kernel copies rows 16 bytes at a time
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_EMPTY_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class RglruPlan:
+    grid: tuple          # CTAs: (channel tiles, batch rows)
+    rows: int            # steps of a slab, a multiple of WARPS
+    slabs: int           # ceil(S / rows)
+    stages: int          # ring buffers in shared memory
+    smem: int            # dynamic shared memory, bytes
+
+
+def rglru_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
+    """The launch of the scan over a, b (B,S,W) of ``dtype`` (float32 or
+    bfloat16): a CTA per 32 channels of a batch row (128 at W 4096, one
+    wave on 132 SMs). A slab holds SLAB_BYTES of a and b (128 steps in
+    float32, 256 in bfloat16), so S up to that is one slab read at once;
+    longer S streams through a ring of STAGES slabs, the next one in flight
+    while one is scanned. Raises ValueError where the kernel's 16-byte
+    copies would not fit the rows (W * itemsize not a multiple of 16)."""
+    item = 4 if dtype == torch.float32 else 2
+    if w * item % ROW_ALIGN:
+        raise ValueError(f"the kernel copies rows 16 bytes at a time: W * "
+                         f"{item} bytes must be a multiple of {ROW_ALIGN} "
+                         f"(W a multiple of {ROW_ALIGN // item}); got W={w}")
+    max_rows = SLAB_BYTES // (2 * CHANNELS * item)
+    if s <= max_rows:
+        rows, stages = -(-s // WARPS) * WARPS, 1
+    else:
+        rows, stages = max_rows, STAGES
+    return RglruPlan(grid=(-(-w // CHANNELS), b), rows=rows, slabs=-(-s // rows),
+                     stages=stages, smem=stages * 2 * rows * CHANNELS * item)
 
 
 def _check(a, b):
@@ -35,26 +75,34 @@ def _check(a, b):
         raise ValueError("a and b must be on one device")
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address: a view that starts
+    inside its buffer is copied, never read misaligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % ROW_ALIGN == 0 else t.clone()
+
+
 def rglru_scan(a, b):
     """a, b (B,S,W) -> h (B,S,W) float32 with h_t = a_t h_{t-1} + b_t from
     h = 0, elementwise over W.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
-    contiguous operands, bfloat16 or float32 as given: each channel's
-    sequence in min(32, ceil(S / 64)) chunks scanned side by side, any
-    S >= 1."""
+    contiguous, 16-byte aligned operands (a view that starts inside its
+    buffer is copied first), bfloat16 or float32 as given, with
+    ``rglru_plan``'s slabs; any S >= 1. Raises ValueError for a W whose
+    rows are not a multiple of 16 bytes."""
     if a.device.type == "cpu":
         return ref_rglru_scan(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no RG-LRU scan for device {a.device}")
     fn = build.kernel_fn("rglru_scan", "rglru_scan", _ARGTYPES)
     _check(a, b)
-    a, b = a.contiguous(), b.contiguous()
     bsz, s, w = a.shape
-    nchunk = min(MAX_CHUNKS, -(-s // CHUNK))
+    plan = rglru_plan(bsz, s, w, a.dtype)
+    a, b = _aligned(a), _aligned(b)
     h = torch.empty((bsz, s, w), dtype=torch.float32, device=a.device)
-    err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, w, nchunk,
-             int(a.dtype == torch.bfloat16),
+    err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, w, plan.rows,
+             plan.stages, plan.smem, int(a.dtype == torch.bfloat16),
              torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "rglru_scan")
     rglru_scan.launches += 1
@@ -62,3 +110,11 @@ def rglru_scan(a, b):
 
 
 rglru_scan.launches = 0
+
+
+def empty_launch(b: int, w: int, plan: RglruPlan, device) -> None:
+    """Launch an empty kernel on ``plan``'s grid, block and shared memory:
+    the floor under the scan's time. Not counted as a scan launch."""
+    fn = build.kernel_fn("rglru_scan", "rglru_empty", _EMPTY_ARGTYPES)
+    build.check(fn(b, w, plan.smem, torch.cuda.current_stream(device).cuda_stream),
+                "rglru_empty")

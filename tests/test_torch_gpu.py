@@ -220,11 +220,15 @@ def rglru_inputs(rng, b, s, w, dtype, dev, gate):
 
 # (b, s, w, gate, tol): tests/test_kernels.py's sweep, then the hybrid
 # path's shapes (W 4096, the prefill lengths of chip_smoke.py); S covers one
-# chunk, whole and ragged chunk counts, and the 32-chunk cap (S > 2048)
+# slab (128 steps in float32, 256 in bfloat16), one step either side of a
+# slab, ragged last slabs, B 4 at S 3072 and S 8192 (many turns of the
+# ring); W 4104 and 4112 leave a ragged last tile of 8 and 16 channels
 RGLRU_CASES = [(2, 64, 32, False, 2e-5), (1, 128, 64, False, 2e-5),
                (3, 32, 16, False, 2e-5)]
 RGLRU_CASES += [(b, s, 4096, True, 1e-4) for b in (1, 4)
                 for s in (1, 37, 128, 2085, 3072)]
+RGLRU_CASES += [(1, s, 4096, True, 1e-4) for s in (127, 129, 255, 257, 8192)]
+RGLRU_CASES += [(1, 300, w, True, 1e-4) for w in (4104, 4112)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -242,6 +246,23 @@ def test_rglru_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
     assert rel < 1e-5, f"relative error {float(rel):.3e}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rglru_kernel_copies_a_misaligned_view(cuda, dtype):
+    """a and b as contiguous views that start one element into their
+    buffers: the wrapper documents that it copies such an operand to an
+    aligned buffer (its 16-byte copies never read it misaligned), so the
+    result is the plain version's."""
+    b, s, w = 1, 128, 4096
+    rng = np.random.default_rng(7)
+    a0, b0 = rglru_inputs(rng, b, s, w, dtype, cuda, True)
+    a, bb = (torch.cat([x.new_zeros(1), x.flatten()])[1:1 + b * s * w].view(b, s, w)
+             for x in (a0, b0))
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got = rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.ref_rglru_scan(a0, b0), rtol=1e-4, atol=1e-4)
 
 
 def _tokens(model, params, device, swap, attn_impl="auto"):

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.block_io import io_spec_for_model  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_kernel  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
@@ -106,6 +107,88 @@ def test_plain_rglru_scan_takes_ragged_lengths(s):
     got16 = ops.rglru_scan(a16, b16)
     assert got16.dtype == torch.float32
     _close(got16, want16, SCAN_TOL)
+
+
+# ------------------------------------------------------------------ the kernel's plan
+PLAN_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+def test_rglru_plan_fills_one_wave_at_the_lru_width(dtype):
+    """recurrentgemma-9b's prefill (B 1, W 4096): at least 128 CTAs, one
+    wave on an H100's 132 SMs."""
+    plan = rglru_kernel.rglru_plan(1, 3072, 4096, dtype)
+    assert 128 <= plan.grid[0] * plan.grid[1] <= 132
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("s", [1, 16, 37, 127, 128, 129, 255, 256, 257, 2085, 3072,
+                               8192])
+def test_rglru_plan_slabs_cover_s_within_shared_memory(s, dtype):
+    """The slabs cover S exactly (a ragged last slab included), a slab
+    splits evenly among the warps, S past one slab goes round a ring of at
+    least two stages, and the ring with the kernel's static arrays fits a
+    CTA's 232,448 bytes of shared memory."""
+    plan = rglru_kernel.rglru_plan(4, s, 4096, dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert (plan.slabs - 1) * plan.rows < s <= plan.slabs * plan.rows
+    assert plan.rows % rglru_kernel.WARPS == 0
+    assert plan.stages >= 2 if plan.slabs > 1 else plan.stages == 1
+    assert plan.smem == plan.stages * 2 * plan.rows * rglru_kernel.CHANNELS * item
+    assert plan.smem + rglru_kernel.STATIC_SMEM <= 232448
+    assert plan.grid == (128, 4)
+
+
+@pytest.mark.parametrize("w,dtype", [(4102, torch.float32), (4100, torch.bfloat16),
+                                     (6, torch.float32), (20, torch.bfloat16)])
+def test_rglru_plan_rejects_rows_off_16_bytes(w, dtype):
+    with pytest.raises(ValueError, match="16 bytes"):
+        rglru_kernel.rglru_plan(1, 128, w, dtype)
+
+
+def _ring_schedule(a, b, plan):
+    """The kernel's order of arithmetic in numpy float32: per slab, each
+    sub-chunk scanned from zero with the product of its a's, a log-depth
+    (Hillis-Steele) scan of the sub-chunks' maps with the carry folded into
+    the first, then each sub-chunk again from its carry-in."""
+    bsz, s, w = a.shape
+    h = np.empty((bsz, s, w), np.float32)
+    carry = np.zeros((bsz, w), np.float32)
+    sub = plan.rows // rglru_kernel.WARPS
+    for k in range(plan.slabs):
+        t0, n = k * plan.rows, min(plan.rows, s - k * plan.rows)
+        p = np.ones((rglru_kernel.WARPS, bsz, w), np.float32)
+        e = np.zeros((rglru_kernel.WARPS, bsz, w), np.float32)
+        spans = [(t0 + j * sub, t0 + min((j + 1) * sub, n))
+                 for j in range(rglru_kernel.WARPS)]
+        for j, (r0, r1) in enumerate(spans):
+            for t in range(r0, r1):
+                e[j] = a[:, t] * e[j] + b[:, t]
+                p[j] = p[j] * a[:, t]
+        e[0] = p[0] * carry + e[0]
+        d = 1
+        while d < rglru_kernel.WARPS:
+            e[d:], p[d:] = p[d:] * e[:-d] + e[d:], p[d:] * p[:-d]
+            d *= 2
+        cin = np.concatenate([carry[None], e[:-1]])
+        carry = e[-1]
+        for j, (r0, r1) in enumerate(spans):
+            hh = cin[j]
+            for t in range(r0, r1):
+                hh = a[:, t] * hh + b[:, t]
+                h[:, t] = hh
+    return h
+
+
+@pytest.mark.parametrize("s", [1, 37, 129, 300])
+def test_rglru_kernel_schedule_matches_jax(s):
+    """The kernel's slabs, sub-chunks and combine, as ``rglru_plan`` lays
+    them out, give the JAX oracle's h (ragged last slab and sub-chunks, and
+    slabs past the first, included)."""
+    a, bb = _scan_inputs(2, s, 24, seed=s)
+    plan = rglru_kernel.rglru_plan(2, s, 24, torch.float32)
+    want = jref.ref_rglru_scan(jnp.asarray(a), jnp.asarray(bb))
+    _close(_ring_schedule(a, bb, plan), want, SCAN_TOL)
 
 
 # ------------------------------------------------------------------ layers
