@@ -15,14 +15,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      not spill);
   3. attention kernels (split-K and legacy warp-split decode, chunked
      prefill) against their plain PyTorch versions on the card, at the main
-     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at long
-     context (B 2, 512-page tables) and with more splits than live tiles, and
-     on the cases of tests/test_kernels.py, garbage pages included;
+     path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at the
+     other serves' head shapes (codeqwen1.5-7b's MHA, Hkv 32; yi-9b's and
+     qwen3-moe's G 8, Hkv 4), at long context (B 2, 512-page tables) and
+     with more splits than live tiles, and on the cases of
+     tests/test_kernels.py, garbage pages included;
   4. attention kernel time beside its bound, the plain version's time and
      ``scaled_dot_product_attention``'s (a yardstick the port never calls):
      decode at the serve's B 8, at B 32 and at long context (B 2, contexts
      8192 and 5000), split-K also at 1, 2, 4 and 8 splits; and the prefill
-     tile height not taken;
+     tile height not taken; decode at B 8 and prefill also at codeqwen's
+     MHA shape;
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
@@ -73,7 +76,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      S 128 and S 3072 prefills (26 RG-LRU kernel launches each) and of
      engine decode steps, one of them storing a block-boundary snapshot;
  15. token parity of a tiny float32 hybrid (5 layers, window 8) between the
-     CPU, the card, the card with host-tier swap, and the card's dense path.
+     CPU, the card, the card with host-tier swap, and the card's dense path;
+ 16. serve full-width qwen3-moe-30b-a3b (48 layers, 128 experts of d_ff 768,
+     top-8, bf16, seeded random weights) through ``EchoEngine`` with phase
+     5's mix and checks, on a card freed of every earlier phase; the peak
+     memory of the init (the weights and one float32 temporary) and of the
+     serve; a profile of a decode step and a prefill chunk, with the expert
+     products' device time, and no copy of an expert weight;
+ 17. one full-width MoE layer of that model, upcast to float32, on the card
+     against the CPU: a 64-token chunk group and a decode batch of 5 padded
+     to 8 route to equal ``dispatch`` tensors, and the outputs agree to
+     1e-4 (relative norm);
+ 18. token parity of a tiny float32 MoE (qwen3-moe reduced) between the CPU
+     and the card, and between the two with host-tier swap, at capacity
+     factors 8.0 and 0.5 (where routing drops tokens, so the swap run's
+     other batches change its tokens);
+ 19. serve full-width yi-9b (48 layers, G 8) and codeqwen1.5-7b (32 layers,
+     MHA) through ``EchoEngine`` with a smaller mix, the checks of phase 5,
+     and a profile of a decode step and a prefill chunk of each.
+
+A profile's figures come from a trace that holds the device record of every
+launch, copy and memset of the step: the profiler at times drops the first
+device records of a trace, so 1024 small launches open each trace ahead of
+the step, and a trace that still lacks some of the step's is taken again,
+at most three times in all (``tools/profile_drops.py`` measures how often).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -81,6 +107,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -106,6 +133,7 @@ from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.state_cache import StateRunner  # noqa: E402
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 
@@ -119,6 +147,15 @@ TOL = {"decode": {torch.bfloat16: 2e-2, torch.float32: 2e-4},
 REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # main-path shapes: qwen3-4b through the engine's paged runner
 HQ, HKV, HD, BS, MAX_PAGES, CHUNK, NUM_BLOCKS = 32, 8, 128, 16, 32, 64, 2048
+# the kv-head counts of the other paged serves at Hq 32, hd 128:
+# codeqwen1.5-7b's MHA (G 1), and yi-9b's and qwen3-moe-30b-a3b's G 8
+CQ_HKV, G8_HKV = 32, 4
+# the serves' request mixes: (prompt length, arrival s) of the online
+# requests, then offline documents x questions of doc + q tokens
+SERVE_MIX = dict(online=((40, 0.0), (96, 0.05), (150, 0.1), (200, 0.2)),
+                 docs=2, questions=3, doc=160, q=24, new=16)
+SMALL_MIX = dict(online=((40, 0.0), (96, 0.05)), docs=1, questions=2, doc=160,
+                 q=24, new=8)
 # mamba2-1.3b through the state runner: one block per SSD chunk, engine
 # chunks of two blocks; the snapshot pool holds at most one 97.6 MiB host
 # snapshot per block
@@ -133,6 +170,15 @@ DEV = "cuda"
 PREFILL_TC, LEGACY_DECODE = "chunked_prefill_tc_kernel", "paged_warp_split_kernel"
 SPLITK_DECODE, SSD_KERNEL = "splitk_cluster_kernel", "ssd_scan_tc_kernel"
 RGLRU_KERNEL = "rglru_ring_kernel"
+# profiles: the runtime calls that each leave one record on the device;
+# the small launches that open a trace, ahead of the step (the profiler at
+# times drops the first device records of a trace); the range that marks
+# the step; and the traces a profile may take before one holds every
+# device record of its step
+DEVICE_CALLS = ("LaunchKernel", "MemcpyAsync", "MemsetAsync")
+PRIMER_LAUNCHES = 1024
+STEP_MARK = "chip_smoke step"
+TRACE_ATTEMPTS = 3
 # the RG-LRU kernel's phase 12 times before its redesign (PR 15's runs on
 # an NVIDIA H100 80GB HBM3 at 700 W, PERF.md), by S
 RGLRU_PR15_MS = {128: 0.0192, 3072: 0.0949}
@@ -270,17 +316,21 @@ def phase_kernels(gen):
     # then the serve's own shape (contexts near 100); one padded row each
     # then the long-context shape (a full cluster of splits, a padded row)
     # and two live tiles under 8 splits
-    shapes = [(b, lo, hi, MAX_PAGES, None) for b, lo, hi in (
+    shapes = [(b, lo, hi, MAX_PAGES, None, HKV) for b, lo, hi in (
         (1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS), (32, 1, MAX_PAGES * BS),
         (8, 80, 120))]
-    shapes += [(2, LONG_CTX[0], LONG_CTX[0], LONG_NBLK, None), (1, 20, 20, MAX_PAGES, 8)]
-    for b, lo, hi, nblk, splits in shapes:
+    shapes += [(2, LONG_CTX[0], LONG_CTX[0], LONG_NBLK, None, HKV),
+               (1, 20, 20, MAX_PAGES, 8, HKV)]
+    # the other serves' head shapes, at a full table and at their contexts
+    shapes += [(8, lo, hi, MAX_PAGES, None, hkv) for hkv in (CQ_HKV, G8_HKV)
+               for lo, hi in ((1, MAX_PAGES * BS), (80, 120))]
+    for b, lo, hi, nblk, splits, hkv in shapes:
         ctx = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEV).tolist()
         if hi == nblk * BS:
             ctx[0] = hi
         if b > 1:
             ctx[-1] = 0
-        ins = decode_inputs(gen, b, HQ, HKV, HD, BS, nblk, ctx, torch.bfloat16,
+        ins = decode_inputs(gen, b, HQ, hkv, HD, BS, nblk, ctx, torch.bfloat16,
                             NUM_BLOCKS)
         live = ins[4] > 0
         want = ref.ref_paged_attention(*ins)
@@ -289,20 +339,21 @@ def phase_kernels(gen):
                          ("paged_attention", paged_attention)):
             got = fn(*ins)
             check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
-            e = compare(f"{name} bf16 B={b} nblk={nblk} ctx {lo}..{hi}"
+            e = compare(f"{name} bf16 B={b} Hkv={hkv} nblk={nblk} ctx {lo}..{hi}"
                         + (f" splits={splits}" if splits and fn is not paged_attention
                            else ""), got, want, TOL["decode"][torch.bfloat16], live)
             errs[name] = max(errs[name], e)
-    for ctx in (0, 37, 448):
-        ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, HKV, HD, torch.bfloat16)
-        want = ref.ref_chunked_prefill_attention(*ins, ctx)
-        e = compare(f"prefill bf16 Sc=64 T=512 ctx={ctx}",
-                    chunked_prefill_attention(*ins, ctx), want,
+    for hkv in (HKV, CQ_HKV, G8_HKV):
+        for ctx in (0, 37, 448):
+            ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, hkv, HD, torch.bfloat16)
+            want = ref.ref_chunked_prefill_attention(*ins, ctx)
+            e = compare(f"prefill bf16 Sc=64 T=512 Hkv={hkv} ctx={ctx}",
+                        chunked_prefill_attention(*ins, ctx), want,
+                        TOL["prefill"][torch.bfloat16])
+            errs["chunked_prefill_attention"] = max(errs["chunked_prefill_attention"], e)
+            compare(f"prefill bf16 Sc=64 T=512 Hkv={hkv} ctx={ctx} {ALT_TILE_ROWS}-row tiles",
+                    chunked_prefill_attention(*ins, ctx, tile_rows=ALT_TILE_ROWS), want,
                     TOL["prefill"][torch.bfloat16])
-        errs["chunked_prefill_attention"] = max(errs["chunked_prefill_attention"], e)
-        compare(f"prefill bf16 Sc=64 T=512 ctx={ctx} {ALT_TILE_ROWS}-row tiles",
-                chunked_prefill_attention(*ins, ctx, tile_rows=ALT_TILE_ROWS), want,
-                TOL["prefill"][torch.bfloat16])
     # the cases of tests/test_kernels.py, both dtypes
     decode_cases = [(2, 4, 4, 32, 8, 4, [32, 17]), (3, 8, 2, 64, 16, 6, [96, 5, 48]),
                     (2, 8, 1, 32, 8, 5, [40, 3]), (4, 4, 1, 16, 4, 3, [12, 1, 7, 9])]
@@ -370,23 +421,23 @@ def _sdpa_decode(q, kp, vp, bt, cl):
     return q[:, :, None], k, v, mask[:, None, None]
 
 
-def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES):
+def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES, hkv=HKV):
     """Time one decode launch at batch ``b`` with contexts ``ctx`` over
-    tables of ``nblk`` pages (by default the main path's width): split-K
-    (its default split count, then 1, 2, 4 and 8 splits a row) and the
-    legacy kernel, beside one bound and one SDPA time."""
-    ins = decode_inputs(gen, b, HQ, HKV, HD, BS, nblk, ctx, torch.bfloat16,
+    tables of ``nblk`` pages (by default the main path's width) and ``hkv``
+    kv heads: split-K (its default split count, then 1, 2, 4 and 8 splits a
+    row) and the legacy kernel, beside one bound and one SDPA time."""
+    ins = decode_inputs(gen, b, HQ, hkv, HD, BS, nblk, ctx, torch.bfloat16,
                         NUM_BLOCKS)
     item = 2
     live_pages = sum(-(-c // BS) for c in ctx)
-    nbytes = (2 * b * HQ * HD * item + sum(ctx) * HKV * HD * 2 * item
+    nbytes = (2 * b * HQ * HD * item + sum(ctx) * hkv * HD * 2 * item
               + live_pages * 4 + b * 4)
     flops = 4 * sum(ctx) * HQ * HD
     sq, sk, sv, smask = _sdpa_decode(*ins)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shape = (f"B={b} Hq={HQ} Hkv={HKV} hd={HD} bs={BS} nblk={nblk} "
+    shape = (f"B={b} Hq={HQ} Hkv={hkv} hd={HD} bs={BS} nblk={nblk} "
              f"sum(ctx)={sum(ctx)} bf16, default splits "
-             f"{default_num_splits(b, HKV, nblk, BS, sms)}")
+             f"{default_num_splits(b, hkv, nblk, BS, sms)}")
     splits_ms = {n: time_ms(lambda: paged_attention_splitk(*ins, num_splits=n))
                  for n in (1, 2, 4, 8)}
     common = dict(
@@ -408,31 +459,22 @@ def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES):
                  max_abs_err=errs["paged_attention"])]
 
 
-def phase_timing(gen, errs):
-    """Rows of kernel times; the first row of each kernel is the shape the
-    serve of phase 5 gives it and goes into the JSON line."""
-    phase("4 kernel time")
-    # decode as the serve runs it (batch 8, contexts near 100), then a
-    # full batch of 32 with ragged contexts up to the table
-    rows = (_decode_rows(gen, errs, 8, torch.randint(
-                80, 121, (8,), generator=gen, device=DEV).tolist())
-            + _decode_rows(gen, errs, 32, torch.randint(
-                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
-            + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK))
-    # prefill: one engine chunk against the longest prefix of the table
+def _prefill_row(gen, errs, hkv):
+    """Time one engine chunk against the longest prefix of the table, with
+    ``hkv`` kv heads, beside the other tile height, one bound and SDPA."""
     item = 2
     sc, t, c = CHUNK, MAX_PAGES * BS, 448
-    ins = prefill_inputs(gen, sc, t, HQ, HKV, HD, torch.bfloat16)
+    ins = prefill_inputs(gen, sc, t, HQ, hkv, HD, torch.bfloat16)
     keys = min(t, c + sc)
-    nbytes = 2 * sc * HQ * HD * item + keys * HKV * HD * 2 * item
+    nbytes = 2 * sc * HQ * HD * item + keys * hkv * HD * 2 * item
     flops = 4 * HD * HQ * sum(min(t, c + i + 1) for i in range(sc))
     mask = (torch.arange(t, device=DEV)[None] <= c + torch.arange(sc, device=DEV)[:, None])
     pq, pk, pv = (x.transpose(0, 1)[None] for x in ins)
-    rows.append(dict(
+    return dict(
         name="chunked_prefill_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
         replaces="src/repro/kernels/chunked_prefill.py:94",
-        shape=f"Sc={sc} T={t} ctx={c} Hq={HQ} Hkv={HKV} hd={HD} bf16",
+        shape=f"Sc={sc} T={t} ctx={c} Hq={HQ} Hkv={hkv} hd={HD} bf16",
         ms=time_ms(lambda: chunked_prefill_attention(*ins, c)),
         other=(f"{ALT_TILE_ROWS}-row tiles",
                time_ms(lambda: chunked_prefill_attention(*ins, c, tile_rows=ALT_TILE_ROWS))),
@@ -440,7 +482,25 @@ def phase_timing(gen, errs):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             pq, pk, pv, attn_mask=mask, enable_gqa=True)),
         bound=bound(nbytes, flops, torch.bfloat16),
-        max_abs_err=errs["chunked_prefill_attention"]))
+        max_abs_err=errs["chunked_prefill_attention"])
+
+
+def phase_timing(gen, errs):
+    """Rows of kernel times; the first row of each kernel is the shape the
+    serve of phase 5 gives it and goes into the JSON line."""
+    phase("4 kernel time")
+    # decode as the serve runs it (batch 8, contexts near 100), then a
+    # full batch of 32 with ragged contexts up to the table, long context,
+    # and batch 8 at codeqwen's MHA shape
+    def serve_ctx():
+        return torch.randint(80, 121, (8,), generator=gen, device=DEV).tolist()
+    rows = (_decode_rows(gen, errs, 8, serve_ctx())
+            + _decode_rows(gen, errs, 32, torch.randint(
+                1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
+            + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK)
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=CQ_HKV))
+    # prefill at qwen3-4b's shape, then at codeqwen's MHA shape
+    rows += [_prefill_row(gen, errs, HKV), _prefill_row(gen, errs, CQ_HKV)]
     for r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
@@ -452,14 +512,55 @@ def phase_timing(gen, errs):
     return rows
 
 
-def _profile_steps(steps, ours, what):
+def _trace(fn, primer=PRIMER_LAUNCHES, record_shapes=False):
+    """One ``torch.profiler`` trace: ``primer`` small launches and a
+    synchronize, then ``fn`` and a synchronize inside a ``STEP_MARK``
+    range. Kineto drops a device record whose start, mapped to the host
+    clock, falls before the traced window; on the card the first records
+    of a trace are at times mapped seconds before their own launch (more
+    of them the longer the process has run), and the trace lacks them. The
+    primer takes those losses in place of the step. Returns the profile,
+    the correlation ids of the launches, copies and memsets the runtime
+    recorded inside the range, and how many device records the trace lacks
+    of those and of the primer's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    buf = torch.zeros(1, device=DEV)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        for _ in range(primer):
+            buf.add_(1)
+        torch.cuda.synchronize()
+        with record_function(STEP_MARK):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cpu = torch.autograd.DeviceType.CPU
+    mark = next(e for e in events if e.name() == STEP_MARK and e.device_type() == cpu)
+    step, primed = set(), set()
+    for e in events:
+        if e.device_type() == cpu and any(c in e.name() for c in DEVICE_CALLS):
+            inside = mark.start_ns() <= e.start_ns() <= mark.end_ns()
+            (step if inside else primed).add(e.correlation_id())
+    on_device = {e.correlation_id() for e in events
+                 if e.device_type() == torch.autograd.DeviceType.CUDA}
+    check(step and len(primed) == primer,
+          f"the trace holds {len(step)} calls of the step and {len(primed)} of the "
+          f"primer's {primer}")
+    return prof, step, len(step - on_device), len(primed - on_device)
+
+
+def _profile_steps(steps, ours, what, ops=None):
     """Where a step's time goes: for each of ``steps`` (name -> call), the
-    wall time (mean of 5, no profiler), and from one ``torch.profiler``
-    trace the device time summed over kernels and copies, their number,
+    wall time (mean of 5, no profiler), and from one ``_trace`` that holds
+    the device record of every launch, copy and memset of the step (taken
+    again, at most ``TRACE_ATTEMPTS`` times in all, while one lacks some)
+    the step's device time summed over kernels and copies, their number,
     and the ones that took longest; then the share of our kernels (names
-    containing one of ``ours``). Returns {step: {device kernel or copy name:
-    (ms, launches)}}."""
-    from torch.profiler import ProfilerActivity, profile
+    containing one of ``ours``). ``ops`` ({label: predicate(op name, input
+    shapes)}) also sums, by label, the host operators that match (traced
+    with their shapes) and the device time of the kernels they launched.
+    Returns {step: {device kernel or copy name: (ms, launches)}}, where
+    ``ops`` adds {("op", label): (ms, operator calls)}."""
     traces = {}
     for name, fn in steps.items():
         fn()
@@ -469,20 +570,29 @@ def _profile_steps(steps, ours, what):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device-side events only (kernels and copies): the CPU-side op
-        # rows of key_averages() carry the same device time again
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            prof, step, dropped, primer_dropped = _trace(fn, record_shapes=ops is not None)
+            if not dropped:
+                break
+            print(f"  profile {name}: trace {attempt} lacks the device records of "
+                  f"{dropped} of the step's {len(step)} calls, tracing again")
+        check(not dropped, f"profile {name}: each of {TRACE_ATTEMPTS} traces lacks "
+              f"device records of the step")
+        # the step's device-side events only (kernels and copies): the
+        # CPU-side op rows of key_averages() carry the same device time again
+        events = prof.events()
+        dev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.id in step]
+        mark = next(e.time_range for e in events if e.name == STEP_MARK
+                    and e.device_type == torch.autograd.DeviceType.CPU)
         dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
         by_name = {}
         for e in dev:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
         print(f"  profile {name}: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-              f"({dev_ms / wall_ms:.1%}), {len(dev)} device kernels and copies")
+              f"({dev_ms / wall_ms:.1%}), {len(dev)} device kernels and copies "
+              f"(the trace lacks {primer_dropped} of the primer's {PRIMER_LAUNCHES})")
         for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
             print(f"    {t:8.3f} ms x{n:<4d} {kname[:90]}")
         mine = [(t, n) for kname, (t, n) in by_name.items()
@@ -490,6 +600,15 @@ def _profile_steps(steps, ours, what):
         print(f"    {what} (ours): {sum(t for t, _ in mine):.3f} ms over "
               f"{sum(n for _, n in mine)} launches, "
               f"{sum(t for t, _ in mine) / max(dev_ms, 1e-9):.1%} of device busy")
+        for label, pred in (ops or {}).items():
+            hit = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and mark.start <= e.time_range.start <= mark.end
+                   and pred(e.name, e.input_shapes)]
+            t = sum(k.duration for e in hit for k in e.kernels) / 1e3
+            by_name[("op", label)] = (t, len(hit))
+            print(f"    {label}: {len(hit)} operator calls, {t:.3f} ms of device "
+                  f"time, {t / max(dev_ms, 1e-9):.1%} of device busy")
         traces[name] = by_name
     return traces
 
@@ -528,21 +647,11 @@ def phase_serve():
     print(f"init: {cfg.num_layers} layers d={cfg.d_model} vocab={cfg.vocab_size} "
           f"{cfg.dtype}, {cfg.param_count / 1e9:.2f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
-    online, offline, eng, stats, wall = _serve_qwen(model, params, "auto")
+    online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SERVE_MIX)
     launches = {"paged_attention_splitk": paged_attention_splitk.launches,
                 "chunked_prefill_attention": chunked_prefill_attention.launches}
     check(min(launches.values()) > 0, "a kernel of the path never launched")
-
-    ttft = [r.ttft() for r in online]
-    tpot = [r.tpot() for r in online]
-    out_tokens = sum(r.n_output for r in online + offline)
-    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
-          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
-    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
-          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
-    print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
-          f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
-    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _print_serve(online, offline, stats, wall)
     attn = (SPLITK_DECODE, PREFILL_TC, LEGACY_DECODE, "merge")
     traces = _profile_steps(_attention_steps(eng.runner), attn[:2], "attention kernels")
     seen = {k: _launches(v, attn) for k, v in traces.items()}
@@ -558,7 +667,7 @@ def phase_serve():
 
     # the same mix through the legacy decode kernel
     print("serve again with attn_impl='pallas' (legacy decode schedule)")
-    on2, off2, eng, _, wall = _serve_qwen(model, params, "pallas")
+    on2, off2, eng, _, wall = _serve_paged(model, params, "pallas", SERVE_MIX)
     check(paged_attention_splitk.launches == 0,
           "the split-K kernel launched in the legacy-schedule serve")
     launches["paged_attention"] = paged_attention.launches
@@ -579,11 +688,25 @@ def phase_serve():
     return launches
 
 
-def _serve_qwen(model, params, attn_impl):
-    """Phase 5's mix through an engine with ``attn_impl``: every request
-    finishes with its tokens, every decode step and prefill chunk launches
-    its kernel once a layer, and no plain attention runs on the card.
-    Returns (online, offline, engine, stats, wall seconds)."""
+def _print_serve(online, offline, stats, wall):
+    ttft = [r.ttft() for r in online]
+    tpot = [r.tpot() for r in online]
+    out_tokens = sum(r.n_output for r in online + offline)
+    print(f"serve: {len(online)} online + {len(offline)} offline requests, "
+          f"{len(stats.iterations)} iterations in {wall:.3f} s wall")
+    print(f"  online TTFT s: mean {np.mean(ttft):.4f} max {np.max(ttft):.4f}; "
+          f"TPOT s: mean {np.mean(tpot):.4f} max {np.max(tpot):.4f}")
+    print(f"  output tokens {out_tokens}, {out_tokens / wall:.1f} tok/s; "
+          f"offline throughput {stats.offline_throughput():.1f} tok/s (engine clock)")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _serve_paged(model, params, attn_impl, mix):
+    """``mix`` (``SERVE_MIX`` or ``SMALL_MIX``) through a paged engine with
+    ``attn_impl``: every request finishes with its tokens inside the
+    vocabulary, every decode step and prefill chunk launches its kernel
+    once a layer, and no plain attention runs on the card. Returns
+    (online, offline, engine, stats, wall seconds)."""
     cfg = model.cfg
     eng = EchoEngine(model, params, ECHO, num_blocks=NUM_BLOCKS, block_size=BS,
                      chunk_size=CHUNK, max_pages_per_seq=MAX_PAGES,
@@ -599,14 +722,15 @@ def _serve_qwen(model, params, attn_impl):
 
     def toks(n):
         return tuple(int(x) for x in rng.integers(0, vocab, n))
-    online = [Request(prompt=toks(n), max_new_tokens=16, task_type=TaskType.ONLINE,
-                      arrival_time=at, slo=SLO(ttft=2.0, tpot=0.5))
-              for n, at in ((40, 0.0), (96, 0.05), (150, 0.1), (200, 0.2))]
+    online = [Request(prompt=toks(n), max_new_tokens=mix["new"],
+                      task_type=TaskType.ONLINE, arrival_time=at,
+                      slo=SLO(ttft=2.0, tpot=0.5))
+              for n, at in mix["online"]]
     offline = []
-    for _ in range(2):
-        doc = toks(160)
-        offline += [Request(prompt=doc + toks(24), max_new_tokens=16,
-                            task_type=TaskType.OFFLINE) for _ in range(3)]
+    for _ in range(mix["docs"]):
+        doc = toks(mix["doc"])
+        offline += [Request(prompt=doc + toks(mix["q"]), max_new_tokens=mix["new"],
+                            task_type=TaskType.OFFLINE) for _ in range(mix["questions"])]
     for r in online + offline:
         eng.submit(r)
 
@@ -1268,6 +1392,191 @@ def phase_parity_hybrid():
     print(f"  tokens equal on CPU, CUDA, CUDA+swap and the CUDA dense path: {cpu_tokens}")
 
 
+# ------------------------------------------------------------------ MoE
+def _free_card(what):
+    """Fail unless the earlier phases left (nearly) nothing allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"  before {what}: {held / 2**20:.1f} MiB allocated on the card")
+    check(held < 1 << 30, f"{held} B still allocated before {what}")
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _init_full_width(cfg):
+    """Seeded random weights of ``cfg`` on the card, with the init's peak
+    memory over the weights: at most one float32 temporary (a stacked
+    weight is drawn one layer at a time)."""
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = _nbytes(params)
+    over = torch.cuda.max_memory_allocated() - weights
+    # the largest float32 draw: the (vocab, d) embedding, or one layer of
+    # the largest stacked weight
+    temp = 4 * max([cfg.vocab_size * cfg.d_model]
+                   + [t[0].numel() for t in tree_leaves(params["layers"])])
+    print(f"init: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+          f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"vocab={cfg.vocab_size} {cfg.dtype}, "
+          f"{sum(t.numel() for t in tree_leaves(params)):,} params, "
+          f"{weights / 1e9:.2f} GB, KV {model.cache_bytes(1, 1):,} B a token, "
+          f"in {time.perf_counter() - t0:.1f} s; init peak over the weights "
+          f"{over / 1e6:.1f} MB (largest float32 temporary {temp / 1e6:.1f} MB)")
+    check(over <= temp + (64 << 20), "the init held more than one float32 temporary")
+    return model, params
+
+
+def phase_serve_moe():
+    """Returns the model and its weights, which phase 17 takes a layer of."""
+    phase("16 serve qwen3-moe-30b-a3b at full width")
+    _free_card("the MoE init")
+    cfg = get_config("qwen3-moe-30b-a3b")
+    model, params = _init_full_width(cfg)
+    print(f"  {cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, "
+          f"capacity factor {cfg.capacity_factor}; pool {NUM_BLOCKS} blocks x {BS} "
+          f"tokens = {model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
+    online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SERVE_MIX)
+    _print_serve(online, offline, stats, wall)
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def expert(shape):              # a stored expert weight, (E, d, ff) or (E, ff, d)
+        return list(shape) in ([e, d, ff], [e, ff, d])
+    ops = {"expert products (bmm on an expert weight)":
+           lambda name, shapes: name == "aten::bmm" and any(map(expert, shapes)),
+           "copies of an expert weight":
+           lambda name, shapes: name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                                         "aten::_to_copy") and any(map(expert, shapes))}
+    attn = (SPLITK_DECODE, PREFILL_TC)
+    traces = _profile_steps(_attention_steps(eng.runner), attn, "attention kernels", ops)
+    # the dense dispatch reads every expert of every layer each step
+    expert_bytes = 3 * e * d * ff * 2 * cfg.num_layers
+    for name, by_name in traces.items():
+        check(_launches(by_name, attn) == cfg.num_layers,
+              f"{name}: not one attention launch a layer")
+        ms, calls = by_name[("op", "expert products (bmm on an expert weight)")]
+        print(f"  {name}: expert products read {expert_bytes / 1e9:.2f} GB in {ms:.3f} ms "
+              f"({expert_bytes / max(ms, 1e-9) / 1e9:.2f} TB/s; bound "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
+        check(calls == 3 * cfg.num_layers,
+              f"{name}: {calls} expert products, not 3 a layer")
+        check(by_name[("op", "copies of an expert weight")][1] == 0,
+              f"{name}: an expert weight was copied")
+    del eng
+    torch.cuda.empty_cache()
+    return model, params
+
+
+def _top_gap(gates, k):
+    """The smallest gap between consecutive ones of each row's k + 1
+    largest gates, in float64: the margin of the k argmax choices."""
+    top = gates.double().sort(-1, descending=True).values[..., :k + 1]
+    return float((top[..., :-1] - top[..., 1:]).min())
+
+
+def phase_moe_layer(model, params):
+    """Layer 0's router and experts, upcast to float32 (2.4 GB on each
+    side), on the card (TF32 off) and on the CPU."""
+    phase("17 one full-width MoE layer: card against CPU (float32)")
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    card = tree_map(lambda a: a[0].float(), params["layers"][0][0]["moe"])
+    host = tree_map(lambda t: t.cpu(), card)
+    d, k = cfg.d_model, cfg.top_k
+    print(f"  layer 0: {_nbytes(card) / 1e9:.2f} GB in float32 on each side")
+    for what, live, rows in (("chunk group of 64", CHUNK, (1, CHUNK)),
+                             ("decode batch of 5 padded to 8", 5, (8, 1))):
+        # inputs whose rows keep their choices 1e-6 apart on the CPU:
+        # routing is discrete, and a closer pair would make equal dispatch
+        # a matter of rounding, not of the port
+        for seed in range(5, 25):
+            g = torch.Generator().manual_seed(seed)
+            x = torch.randn(rows + (d,), generator=g)
+            if rows[0] > 1:             # padded rows: copies of one row
+                x[live:] = x[live]
+            gates = torch.softmax(x.reshape(-1, d) @ host["router"], -1)
+            if _top_gap(gates, k) > 1e-6:
+                break
+        check(_top_gap(gates, k) > 1e-6, f"{what}: no input seed with a 1e-6 margin")
+        t = rows[0] * rows[1]
+        cap = max(int(np.ceil(t * cfg.capacity_factor * k / cfg.num_experts)), 1)
+        routes = [moe._route(torch.softmax(xx.reshape(1, t, d) @ p["router"], -1), k, cap)
+                  for xx, p in ((x, host), (x.to(DEV), card))]
+        same = torch.equal(routes[1][0].cpu(), routes[0][0])
+        kept = int(routes[0][0].sum())
+        want = moe.moe_apply(host, cfg, x)
+        got = moe.moe_apply(card, cfg, x.to(DEV)).cpu()
+        err = float((got - want).abs().max())
+        rel = _rel(got, want)
+        print(f"  {what} (input seed {seed}, margin {_top_gap(gates, k):.2e}): capacity "
+              f"{cap}, {kept} of {t * k} choices kept, dispatch equal {same}; "
+              f"output max_abs_err={err:.3e} rel_err={rel:.3e} (limit 1e-4)")
+        check(same, f"{what}: the card routes other than the CPU")
+        check(rel < 1e-4, f"{what}: the card's MoE output strays from the CPU's")
+    del card, host
+
+
+def phase_parity_moe():
+    """Once capacity binds (factor 0.5), a token's experts depend on the
+    tokens routed with it, so the swap run's schedule (a smaller pool,
+    preemption, other batches) changes its tokens: the card's swap run is
+    held against the CPU's swap run. At factor 8.0 nothing is dropped and
+    all four runs agree."""
+    phase("18 CPU vs CUDA token parity (tiny float32 MoE)")
+    for cf in (8.0, 0.5):
+        cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
+                                  capacity_factor=cf)
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        cuda_params = tree_map(lambda t: t.to(DEV), params)
+        _reset_counts()
+        cpu_tokens, _ = _tiny_engine_tokens(model, params, "cpu", swap=False)
+        gpu_tokens, _ = _tiny_engine_tokens(model, cuda_params, DEV, swap=False)
+        check(cpu_tokens == gpu_tokens, f"cf {cf}: CPU {cpu_tokens} != CUDA {gpu_tokens}")
+        cpu_swap, _ = _tiny_engine_tokens(model, params, "cpu", swap=True)
+        swap_tokens, eng = _tiny_engine_tokens(model, cuda_params, DEV, swap=True)
+        m = eng.bm.metrics
+        check(m.swapped_out_tokens > 0 and m.swapped_in_tokens > 0,
+              "the host tier never swapped")
+        check(cpu_swap == swap_tokens, f"cf {cf}: CPU+swap {cpu_swap} != CUDA+swap "
+              f"{swap_tokens}")
+        if cf >= 1:
+            check(cpu_tokens == swap_tokens, f"cf {cf}: the swap run's tokens differ")
+        check(paged_attention_splitk.launches > 0 and chunked_prefill_attention.launches > 0
+              and ref.ref_paged_attention.cuda_calls == 0
+              and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+              "the CUDA MoE engine did not attend through both kernels only")
+        print(f"  capacity factor {cf}: swapped out {m.swapped_out_tokens} / in "
+              f"{m.swapped_in_tokens} tokens; tokens equal on CPU and CUDA: "
+              f"{cpu_tokens}; on CPU+swap and CUDA+swap: {swap_tokens} (the swap "
+              f"schedule {'changed' if swap_tokens != cpu_tokens else 'kept'} them)")
+
+
+def phase_serve_dense():
+    phase("19 serve yi-9b and codeqwen1.5-7b at full width")
+    launches = {}
+    for arch in ("yi-9b", "codeqwen1.5-7b"):
+        _free_card(f"the {arch} init")
+        model, params = _init_full_width(get_config(arch))
+        print(f"  pool {NUM_BLOCKS} blocks x {BS} tokens = "
+              f"{model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
+        online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SMALL_MIX)
+        _print_serve(online, offline, stats, wall)
+        launches[arch] = (paged_attention_splitk.launches,
+                          chunked_prefill_attention.launches)
+        attn = (SPLITK_DECODE, PREFILL_TC)
+        traces = _profile_steps(_attention_steps(eng.runner), attn, "attention kernels")
+        check(all(_launches(v, attn) == model.cfg.num_layers for v in traces.values()),
+              f"{arch}: a profiled step launched other than one attention kernel a layer")
+        del eng, params, model
+        torch.cuda.empty_cache()
+    print(f"  (split-K, prefill) launches: {launches}")
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1287,6 +1596,11 @@ def main():
     del model, params, eng
     torch.cuda.empty_cache()
     phase_parity_hybrid()
+    model, params = phase_serve_moe()
+    phase_moe_layer(model, params)
+    del model, params
+    phase_parity_moe()
+    phase_serve_dense()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

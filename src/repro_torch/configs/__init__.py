@@ -1,9 +1,11 @@
 """Architecture config registry (``--arch <id>``) of the PyTorch port.
 
 Only the architectures whose whole serving path is ported are registered:
-one of each family the port serves (dense attention, pure SSM, the hybrid
-RG-LRU family). The MoE and multimodal architectures of the JAX package's
-registry are not ported yet.
+the dense attention family (qwen3-4b, yi-9b, codeqwen1.5-7b, granite-34b),
+the routed MoE family (qwen3-moe-30b-a3b), pure SSM (mamba2-1.3b) and the
+hybrid RG-LRU family (recurrentgemma-9b). The multimodal architectures of
+the JAX package's registry (qwen2-vl-72b, llama4-scout-17b-a16e,
+musicgen-medium) are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +15,11 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
     "qwen3-4b": "qwen3_4b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "yi-9b": "yi_9b",
+    "granite-34b": "granite_34b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 

@@ -28,10 +28,10 @@ def attn_init(gen: torch.Generator, cfg, dtype, lead=()):
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = tuple(lead)
     p = {
-        "wq": dense_init(gen, lead + (d, hq, hd), d, dtype),
-        "wk": dense_init(gen, lead + (d, hkv, hd), d, dtype),
-        "wv": dense_init(gen, lead + (d, hkv, hd), d, dtype),
-        "wo": dense_init(gen, lead + (hq, hd, d), hq * hd, dtype),
+        "wq": dense_init(gen, (d, hq, hd), d, dtype, lead),
+        "wk": dense_init(gen, (d, hkv, hd), d, dtype, lead),
+        "wv": dense_init(gen, (d, hkv, hd), d, dtype, lead),
+        "wo": dense_init(gen, (hq, hd, d), hq * hd, dtype, lead),
     }
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=gen.device)

@@ -24,15 +24,23 @@ def resolve_device(device) -> torch.device:
 
 
 # ---------------------------------------------------------------- init utils
-def dense_init(gen: torch.Generator, shape, in_axis_size, dtype):
+def dense_init(gen: torch.Generator, shape, in_axis_size, dtype, lead=()):
+    """Normal weights of ``lead + shape`` scaled by 1/sqrt(in_axis_size).
+    ``lead`` (the stacked-layer axes) is drawn one layer at a time in
+    float32 and written into a tensor of ``dtype``: the float32 temporary
+    is one layer's (805 MB for qwen3-moe's ``we1``), not the stack's."""
     scale = 1.0 / np.sqrt(max(in_axis_size, 1))
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    lead, shape = tuple(lead), tuple(shape)
+    out = torch.empty(lead + shape, dtype=dtype, device=gen.device)
+    for idx in np.ndindex(*lead):          # a single () when there is no lead
+        w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+        out[idx] = w.mul_(scale)
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------- norms
@@ -92,11 +100,10 @@ def default_positions(batch, seq, mrope=False, offset=0, device="cpu"):
 # ---------------------------------------------------------------- MLP
 def swiglu_init(gen: torch.Generator, d_model, d_ff, dtype, lead=()):
     """``lead`` prepends a stacked-layer axis."""
-    lead = tuple(lead)
     return {
-        "w1": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
-        "w3": dense_init(gen, lead + (d_model, d_ff), d_model, dtype),
-        "w2": dense_init(gen, lead + (d_ff, d_model), d_ff, dtype),
+        "w1": dense_init(gen, (d_model, d_ff), d_model, dtype, lead),
+        "w3": dense_init(gen, (d_model, d_ff), d_model, dtype, lead),
+        "w2": dense_init(gen, (d_ff, d_model), d_ff, dtype, lead),
     }
 
 

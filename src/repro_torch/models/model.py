@@ -3,12 +3,12 @@ decode path and its caches.
 
 Ported from ``repro/models/model.py``: ``init``, ``_embed``, ``_logits``,
 ``prefill``, ``decode_step``, and ``make_cache`` / ``pad_cache`` /
-``cache_bytes`` for "attn" (the ring of ``attn_cache_len`` slots), "ssm"
-and "rglru" layers. The serving engine runs attention stacks through
-``TorchPagedRunner`` and state stacks (SSM and the hybrid RG-LRU family)
-through ``StateRunner``, which calls ``decode_step``. Not ported yet:
-``forward_train``, the multimodal projection and "moe" blocks (their cache
-entry is the attention ring, as in JAX, but the block raises).
+``cache_bytes`` for "attn" and "moe" (the ring of ``attn_cache_len``
+slots), "ssm" and "rglru" layers. The serving engine runs attention stacks
+(dense and MoE) through ``TorchPagedRunner`` and state stacks (SSM and the
+hybrid RG-LRU family) through ``StateRunner``, which calls
+``decode_step``. Not ported yet: ``forward_train`` and the multimodal
+projection.
 """
 from __future__ import annotations
 
@@ -35,7 +35,9 @@ class Model:
         """Parameters with the layout and distributions of the JAX init,
         drawn from ``generator`` on its own device. The draws differ from
         ``jax.random``'s: parity tests carry JAX weights over with
-        ``repro_torch.params.from_jax`` instead."""
+        ``repro_torch.params.from_jax`` instead. Stacked weights are drawn
+        one layer at a time (``dense_init``), so the peak is the weights
+        plus one layer's float32 slice."""
         cfg = self.cfg
         if cfg.multimodal:
             raise NotImplementedError("the multimodal projection is not ported yet")

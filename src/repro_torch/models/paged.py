@@ -1,4 +1,5 @@
-"""Paged-KV execution path for the serving engine (attention families).
+"""Paged-KV execution path for the serving engine (attention families:
+dense and routed MoE).
 
 KV lives in a global page pool per layer; requests reference pages through
 block tables (the BlockManager owns the indirection). On the card the
@@ -19,7 +20,7 @@ from repro_torch.core.block_io import io_spec_for_model
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _qkv
-from repro_torch.models.common import resolve_device, rms_norm, rope_angles, swiglu
+from repro_torch.models.common import resolve_device, rms_norm, rope_angles
 from repro_torch.models.model import Model
 from repro_torch.params import tree_map
 
@@ -83,11 +84,10 @@ class TorchPagedRunner:
                  attn_impl: str = "auto", device="cuda"):
         cfg = model.cfg
         kinds = set(cfg.attn_layers)
-        if kinds != {"attn"}:
+        if not kinds <= {"attn", "moe"}:
             raise NotImplementedError(
-                f"the port's paged runner serves dense attention stacks, got "
-                f"{sorted(kinds)}; MoE is not ported yet, and SSM and hybrid "
-                f"stacks run on StateRunner")
+                f"the paged runner serves attention families (dense and MoE), "
+                f"got {sorted(kinds)}; SSM and hybrid stacks run on StateRunner")
         self.device = resolve_device(device)
         kops.check_impl(attn_impl)
         self.model = model
@@ -105,18 +105,19 @@ class TorchPagedRunner:
                 {name: torch.zeros((n,) + shp, dtype=model.dtype,
                                    device=self.device) for name in ("k", "v")}
                 for _ in unit))
-        # per-layer views of the stacked weights and pages, in stack order
+        # per-layer kinds and views of the stacked weights and pages, in
+        # stack order
         self._layers = []
-        for (stype, _, n), seg_p, seg_pg in zip(
+        for (stype, unit, n), seg_p, seg_pg in zip(
                 tfm.segments(cfg), self.params["layers"], self.pages):
             for i in range(n):
-                for p_k, pg_k in zip(seg_p, seg_pg):
+                for kind, p_k, pg_k in zip(unit, seg_p, seg_pg):
                     if stype == "scan":
                         p_k = tree_map(lambda a, i=i: a[i], p_k)
                         pg_k = {name: pg_k[name][i] for name in ("k", "v")}
                     else:
                         pg_k = {name: pg_k[name][0] for name in ("k", "v")}
-                    self._layers.append((p_k, pg_k))
+                    self._layers.append((kind, p_k, pg_k))
 
     # ------------------------------------------------------------- impls
     def _rope_for(self, positions):
@@ -127,12 +128,14 @@ class TorchPagedRunner:
                            cfg.mrope_sections)
 
     def _run_stack(self, h, rope, attn_fn):
+        """Every layer on all rows of ``h``, the padded ones included: a
+        MoE layer routes them with the live rows, as the JAX runner does."""
         cfg = self.model.cfg
         cos, sin = rope
-        for p, pg in self._layers:
+        for kind, p, pg in self._layers:
             x = rms_norm(h, p["ln1"], cfg.norm_eps)
             h = h + attn_fn(p["attn"], cfg, x, cos, sin, pg["k"], pg["v"])
-            h = h + swiglu(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+            h = h + tfm.ffn(kind, p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
         return h
 
     def _final_logits(self, h):

@@ -35,16 +35,16 @@ def rglru_init(gen: torch.Generator, cfg, dtype, lead=()):
     def full(value, dt=torch.float32):
         return torch.full(lead + (w,), value, dtype=dt, device=gen.device)
     return {
-        "wx": dense_init(gen, lead + (d, w), d, dtype),
-        "wg": dense_init(gen, lead + (d, w), d, dtype),
-        "conv_w": dense_init(gen, lead + (cfg.ssm_conv, w), cfg.ssm_conv, dtype),
+        "wx": dense_init(gen, (d, w), d, dtype, lead),
+        "wg": dense_init(gen, (d, w), d, dtype, lead),
+        "conv_w": dense_init(gen, (cfg.ssm_conv, w), cfg.ssm_conv, dtype, lead),
         "conv_b": full(0.0, dtype),
         "lam": full(2.0),                  # softplus(2) ~ 2.1
         "wr": full(1.0),
         "br": full(0.0),
         "wi": full(1.0),
         "bi": full(0.0),
-        "wo": dense_init(gen, lead + (w, d), w, dtype),
+        "wo": dense_init(gen, (w, d), w, dtype, lead),
     }
 
 

@@ -37,20 +37,20 @@ def ssm_init(gen: torch.Generator, cfg, dtype, lead=()):
     def full(shape, value, dt):
         return torch.full(lead + shape, value, dtype=dt, device=dev)
     return {
-        "z_proj": dense_init(gen, lead + (d, d_inner), d, dtype),
-        "x_proj": dense_init(gen, lead + (d, d_inner), d, dtype),
-        "b_proj": dense_init(gen, lead + (d, n), d, dtype),
-        "c_proj": dense_init(gen, lead + (d, n), d, dtype),
-        "dt_proj": dense_init(gen, lead + (d, nheads), d, dtype),
-        "conv_x": dense_init(gen, lead + (cfg.ssm_conv, d_inner), cfg.ssm_conv, dtype),
-        "conv_bc": dense_init(gen, lead + (cfg.ssm_conv, 2 * n), cfg.ssm_conv, dtype),
+        "z_proj": dense_init(gen, (d, d_inner), d, dtype, lead),
+        "x_proj": dense_init(gen, (d, d_inner), d, dtype, lead),
+        "b_proj": dense_init(gen, (d, n), d, dtype, lead),
+        "c_proj": dense_init(gen, (d, n), d, dtype, lead),
+        "dt_proj": dense_init(gen, (d, nheads), d, dtype, lead),
+        "conv_x": dense_init(gen, (cfg.ssm_conv, d_inner), cfg.ssm_conv, dtype, lead),
+        "conv_bc": dense_init(gen, (cfg.ssm_conv, 2 * n), cfg.ssm_conv, dtype, lead),
         "conv_x_b": full((d_inner,), 0.0, dtype),
         "conv_bc_b": full((2 * n,), 0.0, dtype),
         "A_log": full((nheads,), 0.0, torch.float32),    # A = -exp(A_log) = -1
         "D": full((nheads,), 1.0, torch.float32),
         "dt_bias": full((nheads,), 0.0, torch.float32),
         "norm": full((d_inner,), 1.0, dtype),
-        "out_proj": dense_init(gen, lead + (d_inner, d), d_inner, dtype),
+        "out_proj": dense_init(gen, (d_inner, d), d_inner, dtype, lead),
     }
 
 

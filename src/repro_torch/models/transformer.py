@@ -9,20 +9,20 @@ segment may hold no layer at all (recurrentgemma reduced to 2 layers is an
 empty scan segment plus the unrolled pair). The paged runner walks the
 attention stack itself (``repro_torch/models/paged.py``), and the state
 runner walks the SSM stack in prefill (``repro_torch/models/state_cache.py``).
-``stack_context`` and ``stack_decode`` serve "attn", "ssm" and "rglru"
-blocks; "moe" blocks are not ported yet (ROADMAP queue: MoE).
+``stack_context`` and ``stack_decode`` serve "attn", "moe", "ssm" and
+"rglru" blocks; a "moe" block is the attention block with the routed
+experts (``repro_torch/models/moe.py``) in place of the SwiGLU MLP.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm, swiglu, swiglu_init
 from repro_torch.params import tree_map
-
-_MOE = "'moe' blocks are not ported yet (ROADMAP queue: MoE)"
 
 
 # ----------------------------------------------------------------- segments
@@ -45,12 +45,16 @@ def block_init(kind, gen: torch.Generator, cfg, dtype, lead=()):
     """One block's parameters; ``lead`` prepends the stacked-layer axis."""
     lead = tuple(lead)
     d = cfg.d_model
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         ones = dict(dtype=dtype, device=gen.device)
-        return {"ln1": torch.ones(lead + (d,), **ones),
-                "attn": attn_mod.attn_init(gen, cfg, dtype, lead),
-                "ln2": torch.ones(lead + (d,), **ones),
-                "mlp": swiglu_init(gen, d, cfg.d_ff, dtype, lead)}
+        p = {"ln1": torch.ones(lead + (d,), **ones),
+             "attn": attn_mod.attn_init(gen, cfg, dtype, lead),
+             "ln2": torch.ones(lead + (d,), **ones)}
+        if kind == "attn":
+            p["mlp"] = swiglu_init(gen, d, cfg.d_ff, dtype, lead)
+        else:
+            p["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+        return p
     if kind == "ssm":
         return {"ln": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
                 "ssm": ssm_mod.ssm_init(gen, cfg, dtype, lead)}
@@ -60,9 +64,15 @@ def block_init(kind, gen: torch.Generator, cfg, dtype, lead=()):
                 "rglru": rglru_mod.rglru_init(gen, cfg, dtype, lead),
                 "ln2": torch.ones(lead + (d,), **ones),
                 "mlp": swiglu_init(gen, d, cfg.d_ff, dtype, lead)}
-    if kind == "moe":
-        raise NotImplementedError(_MOE)
     raise ValueError(kind)
+
+
+def ffn(kind, p, cfg, x):
+    """The feed-forward half of an "attn" or "moe" block on its normed
+    input: the SwiGLU MLP or the routed experts."""
+    if kind == "attn":
+        return swiglu(p["mlp"], x)
+    return moe_mod.moe_apply(p["moe"], cfg, x)
 
 
 def _attn_window(cfg):
@@ -72,12 +82,12 @@ def _attn_window(cfg):
 def block_context(kind, p, cfg, x, rope, *, seq_lens=None, return_cache=False):
     """One block over a whole sequence: x (B,S,d) -> (x, cache or None)."""
     cos, sin = rope
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         h, cache = attn_mod.attn_context(
             p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin,
             window=_attn_window(cfg), seq_lens=seq_lens, return_cache=return_cache)
         x = x + h
-        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        return x + ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps)), cache
     if kind == "ssm":
         h, cache = ssm_mod.ssm_context(
             p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps),
@@ -89,19 +99,17 @@ def block_context(kind, p, cfg, x, rope, *, seq_lens=None, return_cache=False):
             return_cache=return_cache)
         x = x + h
         return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
-    if kind == "moe":
-        raise NotImplementedError(_MOE)
     raise ValueError(kind)
 
 
 def block_decode(kind, p, cfg, x, rope, cache, pos):
     """One block on one token per row: x (B,1,d) -> (x, new cache)."""
     cos, sin = rope
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         h, cache = attn_mod.attn_decode(
             p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin, cache, pos)
         x = x + h
-        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        return x + ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps)), cache
     if kind == "ssm":
         h, cache = ssm_mod.ssm_decode(p["ssm"], cfg,
                                       rms_norm(x, p["ln"], cfg.norm_eps), cache)
@@ -111,8 +119,6 @@ def block_decode(kind, p, cfg, x, rope, cache, pos):
             p["rglru"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cache)
         x = x + h
         return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
-    if kind == "moe":
-        raise NotImplementedError(_MOE)
     raise ValueError(kind)
 
 

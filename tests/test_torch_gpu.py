@@ -1,8 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
 paths' shapes, and the engine's tokens on the card against the CPU, for an
-attention model (both decode schedules), a mamba2 model and a hybrid
-RG-LRU model.
+attention model (both decode schedules), a routed MoE model (capacity
+factors 8.0 and 0.5), a mamba2 model and a hybrid RG-LRU model; and the
+MoE layer's routing on the card against the CPU.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 where only PyTorch is installed:
@@ -56,6 +57,12 @@ PAGED_DECODE_CASES = [
     (2, 32, 8, 128, 16, 512, [8192, 0]),
     # two live tiles: with 8 splits most splits walk nothing
     (1, 32, 8, 128, 16, 32, [20]),
+    # codeqwen1.5-7b's MHA (G 1) at the serve's contexts and a full table,
+    # and the G 8 / Hkv 4 shape of yi-9b and qwen3-moe-30b-a3b
+    (8, 32, 32, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (8, 32, 32, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    (8, 32, 4, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (8, 32, 4, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
 ]
 CHUNKED_CASES = [
     (64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37), (32, 64, 2, 1, 64, 30),
@@ -66,6 +73,8 @@ CHUNKED_CASES = [
     (64, 2048, 32, 8, 128, 1984),     # a long prefix through many ring stages
     (1, 40, 4, 1, 64, 39),            # a single query row
     (64, 512, 32, 8, 128, 37),        # a frontier off every tile boundary
+    (64, 512, 32, 32, 128, 0), (64, 512, 32, 32, 128, 448),         # codeqwen MHA
+    (64, 512, 32, 4, 128, 0), (64, 512, 32, 4, 128, 448),           # G 8, Hkv 4
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
@@ -318,6 +327,57 @@ def test_legacy_engine_tokens_on_card_equal_cpu(cuda):
     assert got == want
     assert paged_attention.launches > launches[0]
     assert paged_attention_splitk.launches == launches[1]
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+def test_moe_engine_tokens_on_card_equal_cpu(cuda, cf):
+    """qwen3-moe reduced: the tokens of the CPU on the card, with and
+    without host-tier swap. At capacity factor 0.5 routing drops tokens,
+    so the swap run's batches change its tokens: it is held against the
+    CPU's swap run."""
+    model = Model(dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
+                                      capacity_factor=cf))
+    params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    want, _ = _tokens(model, params, "cpu", swap=False)
+    launches = paged_attention_splitk.launches, chunked_prefill_attention.launches
+    got, _ = _tokens(model, gpu_params, cuda, swap=False)
+    assert got == want
+    assert paged_attention_splitk.launches > launches[0]
+    assert chunked_prefill_attention.launches > launches[1]
+    want_swap, _ = _tokens(model, params, "cpu", swap=True)
+    got_swap, eng = _tokens(model, gpu_params, cuda, swap=True)
+    assert eng.bm.metrics.swapped_in_tokens > 0
+    assert got_swap == want_swap
+    if cf >= 1:
+        assert got_swap == want
+
+
+@pytest.mark.parametrize("rows", [(1, 64), (8, 1)], ids=["chunk", "decode"])
+def test_moe_layer_on_card_matches_cpu(cuda, rows):
+    """One float32 MoE layer (d 1024, 64 experts of d_ff 256, top-8,
+    capacity 1.25): the card routes exactly as the CPU, on inputs whose
+    top-9 gates (the ones the eight choices compare) keep 1e-6 apart, and
+    the outputs agree to 1e-4 relative."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), d_model=1024,
+                              num_experts=64, d_ff=256, dtype="float32")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn(rows + (cfg.d_model,), generator=torch.Generator().manual_seed(1))
+    gates = torch.softmax(x.reshape(-1, cfg.d_model).double() @ p["router"].double(), -1)
+    top = gates.sort(-1, descending=True).values[:, :cfg.top_k + 1]
+    assert float((top[:, :-1] - top[:, 1:]).min()) > 1e-6
+    gp = tree_map(lambda t: t.to(cuda), p)
+    t = rows[0] * rows[1]
+    cap = max(int(np.ceil(t * cfg.capacity_factor * cfg.top_k / cfg.num_experts)), 1)
+    routes = [moe._route(torch.softmax(xx.reshape(1, t, -1) @ pp["router"], -1),
+                         cfg.top_k, cap)
+              for xx, pp in ((x, p), (x.to(cuda), gp))]
+    assert torch.equal(routes[1][0].cpu(), routes[0][0])
+    want = moe.moe_apply(p, cfg, x)
+    got = moe.moe_apply(gp, cfg, x.to(cuda)).cpu()
+    rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+    assert rel < 1e-4, float(rel)
 
 
 def ssd_inputs(rng, case, dev, slow=False, with_init=False):

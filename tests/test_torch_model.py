@@ -98,12 +98,17 @@ def test_from_jax_keeps_structure_shapes_and_dtypes(tiny_cfg, dtype):
         np.testing.assert_array_equal(_np(t), np.asarray(a, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["tiny", "qwen3-4b"])
+NEW_ARCHS = ["yi-9b", "codeqwen1.5-7b", "granite-34b", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch", ["tiny", "qwen3-4b"] + NEW_ARCHS)
 def test_init_layout_and_scale_match_jax(tiny_cfg, arch):
-    jcfg = tiny_cfg if arch == "tiny" else jget_config("qwen3-4b").reduced()
+    jcfg = tiny_cfg if arch == "tiny" else jget_config(arch).reduced()
     cfg = _port_cfg(jcfg)
-    if arch == "qwen3-4b":
-        assert cfg == get_config("qwen3-4b").reduced()
+    if arch != "tiny":
+        assert cfg == get_config(arch).reduced()
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
     jparams = JModel(jcfg).init(jax.random.PRNGKey(0))
     tparams = Model(cfg).init(torch.Generator().manual_seed(0))
     jleaves = jax.tree.leaves(jparams)
@@ -118,11 +123,52 @@ def test_init_layout_and_scale_match_jax(tiny_cfg, arch):
             assert abs(t.std() / a.std() - 1) < 0.1
 
 
+def test_stacked_init_draws_one_layer_at_a_time(monkeypatch):
+    """A stacked weight is drawn layer by layer in float32 and written into
+    the target dtype: no float32 draw spans the layer axis, each layer has
+    the reference's scale, and the layers differ."""
+    shapes = []
+    randn = torch.randn
+
+    def spy(*args, **kw):
+        shapes.append(tuple(args[0]))
+        return randn(*args, **kw)
+    monkeypatch.setattr(torch, "randn", spy)
+    w = common.dense_init(torch.Generator().manual_seed(0), (64, 48), 64,
+                          torch.bfloat16, lead=(3,))
+    assert w.shape == (3, 64, 48) and w.dtype == torch.bfloat16
+    assert shapes == [(64, 48)] * 3
+    for layer in range(3):
+        assert abs(float(w[layer].float().std()) * 8 - 1) < 0.1
+    assert not torch.equal(w[0], w[1])
+    shapes.clear()
+    Model(_port_cfg(jget_config("qwen3-moe-30b-a3b").reduced())).init(
+        torch.Generator().manual_seed(0))
+    assert (4, 256, 512) in shapes                 # one layer's experts
+    assert not any(len(s) == 4 for s in shapes)    # never the whole stack
+
+
 # ---------------------------------------------------------------- runner
-@pytest.fixture(scope="module", params=["tiny", "qwen3-4b"])
+RUNNER_ARCHS = {"qwen3-moe": ("qwen3-moe-30b-a3b", 8.0),
+                "qwen3-moe-cf0.5": ("qwen3-moe-30b-a3b", 0.5),
+                "yi-9b": ("yi-9b", None), "codeqwen1.5-7b": ("codeqwen1.5-7b", None),
+                "granite-34b": ("granite-34b", None)}
+
+
+@pytest.fixture(scope="module", params=["tiny", "qwen3-4b"] + list(RUNNER_ARCHS))
 def runners(request, tiny_cfg):
-    jcfg = (tiny_cfg if request.param == "tiny"
-            else jget_config("qwen3-4b").reduced())
+    """The MoE cases pad the decode batch of 3 to 4 rows, and the padded
+    row routes with the live ones; at capacity factor 0.5 it takes
+    capacity."""
+    if request.param == "tiny":
+        jcfg = tiny_cfg
+    elif request.param == "qwen3-4b":
+        jcfg = jget_config("qwen3-4b").reduced()
+    else:
+        arch, cf = RUNNER_ARCHS[request.param]
+        jcfg = jget_config(arch).reduced()
+        if cf is not None:
+            jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
     jm = JModel(jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     tp = from_jax(jax.tree.map(np.asarray, params), "cpu")

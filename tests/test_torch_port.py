@@ -209,14 +209,18 @@ def test_non_cpu_non_cuda_device_raises():
 
 
 def test_port_module_list_covers_the_state_path():
-    """The import-hygiene tests walk every module of the port, the state
-    and hybrid paths' included."""
+    """The import-hygiene tests walk every module of the port, the state,
+    hybrid and MoE paths', the simulator and every config included."""
     names = _module_names()
     for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
                 "repro_torch.models.state_cache",
                 "repro_torch.configs.mamba2_1_3b",
                 "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru",
-                "repro_torch.configs.recurrentgemma_9b"):
+                "repro_torch.configs.recurrentgemma_9b",
+                "repro_torch.core.simulator", "repro_torch.models.moe",
+                "repro_torch.configs.yi_9b", "repro_torch.configs.codeqwen1_5_7b",
+                "repro_torch.configs.granite_34b",
+                "repro_torch.configs.qwen3_moe_30b_a3b"):
         assert mod in names
 
 
