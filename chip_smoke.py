@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prefill) against their plain PyTorch versions on the card, at the main
      path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at the
      other serves' head shapes (codeqwen1.5-7b's MHA, Hkv 32; yi-9b's and
-     qwen3-moe's G 8, Hkv 4), at long context (B 2, 512-page tables) and
+     qwen3-moe's G 8, Hkv 4; musicgen-medium's MHA of 24 heads at hd 64,
+     B 1, 8 and 32), at long context (B 2, 512-page tables) and
      with more splits than live tiles, and on the cases of
      tests/test_kernels.py, garbage pages included;
   4. attention kernel time beside its bound, the plain version's time and
@@ -25,7 +26,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      decode at the serve's B 8, at B 32 and at long context (B 2, contexts
      8192 and 5000), split-K also at 1, 2, 4 and 8 splits; and the prefill
      tile height not taken; decode at B 8 and prefill also at codeqwen's
-     MHA shape;
+     and musicgen-medium's MHA shapes;
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
@@ -93,7 +94,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      other batches change its tokens);
  19. serve full-width yi-9b (48 layers, G 8) and codeqwen1.5-7b (32 layers,
      MHA) through ``EchoEngine`` with a smaller mix, the checks of phase 5,
-     and a profile of a decode step and a prefill chunk of each.
+     and a profile of a decode step and a prefill chunk of each;
+ 20. serve full-width musicgen-medium (48 layers, d 1536, 24 heads of hd 64,
+     bf16, seeded random weights) through ``EchoEngine`` with phase 5's mix
+     and checks, an ``EngineProbe`` and a ``Tracer`` attached: the probe
+     saw every iteration, ``repro_torch.obs.check`` accepts the Prometheus
+     text and the trace JSON, and the profiled decode step and prefill chunk
+     launch one split-K or one prefill kernel a layer;
+ 21. its dense path with conditioning frames (``Model.prefill`` with
+     ``mm_embeds``, ``pad_cache``, decode steps) in bf16 against a float32
+     copy of the weights, and the frames' effect on the logits; then tiny
+     float32 qwen2-vl-72b (M-RoPE) and llama4-scout-17b-a16e (top-1 with a
+     shared expert, capacity factors 8.0 and 0.5): engine tokens on the CPU
+     and the card, with and without host-tier swap, and the prefill with
+     frames;
+ 22. two engines on musicgen's one copy of the weights, each with its own
+     pool and host tier, as replicas under a ``cluster.Router``: a cached
+     document's pages migrate from replica 0 to replica 1, whose greedy
+     tokens equal replica 0's, and a request evacuated from replica 0
+     mid-decode finishes on replica 1 with no block leaked.
 
 A profile's figures come from a trace that holds the device record of every
 launch, copy and memset of the step: the profiler at times drops the first
@@ -112,6 +131,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -121,6 +141,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.cluster import Replica, Router  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType, TimeModel  # noqa: E402
@@ -135,6 +156,8 @@ from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.state_cache import StateRunner  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer, instrument_engine  # noqa: E402
+from repro_torch.obs.check import check_prometheus, check_trace  # noqa: E402
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -150,6 +173,14 @@ HQ, HKV, HD, BS, MAX_PAGES, CHUNK, NUM_BLOCKS = 32, 8, 128, 16, 32, 64, 2048
 # the kv-head counts of the other paged serves at Hq 32, hd 128:
 # codeqwen1.5-7b's MHA (G 1), and yi-9b's and qwen3-moe-30b-a3b's G 8
 CQ_HKV, G8_HKV = 32, 4
+# musicgen-medium's heads: MHA, 24 of hd 64 (a head count off a power of two)
+MG_H, MG_HD = 24, 64
+# its dense path: a prompt of S tokens whose first frames are conditioning
+# embeddings, then decode steps; bf16 against a float32 copy of the weights
+# must stay within DENSE_REL_LIMIT (relative norm of the logits)
+MM_S, MM_FRAMES, MM_STEPS, DENSE_REL_LIMIT = 128, 32, 8, 0.1
+# the two replicas of phase 22: device pool and host tier, in blocks, each
+REP_BLOCKS = 256
 # the serves' request mixes: (prompt length, arrival s) of the online
 # requests, then offline documents x questions of doc + q tokens
 SERVE_MIX = dict(online=((40, 0.0), (96, 0.05), (150, 0.1), (200, 0.2)),
@@ -316,21 +347,26 @@ def phase_kernels(gen):
     # then the serve's own shape (contexts near 100); one padded row each
     # then the long-context shape (a full cluster of splits, a padded row)
     # and two live tiles under 8 splits
-    shapes = [(b, lo, hi, MAX_PAGES, None, HKV) for b, lo, hi in (
+    shapes = [(b, lo, hi, MAX_PAGES, None, HQ, HKV, HD) for b, lo, hi in (
         (1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS), (32, 1, MAX_PAGES * BS),
         (8, 80, 120))]
-    shapes += [(2, LONG_CTX[0], LONG_CTX[0], LONG_NBLK, None, HKV),
-               (1, 20, 20, MAX_PAGES, 8, HKV)]
+    shapes += [(2, LONG_CTX[0], LONG_CTX[0], LONG_NBLK, None, HQ, HKV, HD),
+               (1, 20, 20, MAX_PAGES, 8, HQ, HKV, HD)]
     # the other serves' head shapes, at a full table and at their contexts
-    shapes += [(8, lo, hi, MAX_PAGES, None, hkv) for hkv in (CQ_HKV, G8_HKV)
+    shapes += [(8, lo, hi, MAX_PAGES, None, HQ, hkv, HD) for hkv in (CQ_HKV, G8_HKV)
                for lo, hi in ((1, MAX_PAGES * BS), (80, 120))]
-    for b, lo, hi, nblk, splits, hkv in shapes:
+    # musicgen-medium's (hd 64, 24 heads, G 1) at B 1, 8 and 32 up to the
+    # table and at the serve's contexts
+    shapes += [(b, lo, hi, MAX_PAGES, None, MG_H, MG_H, MG_HD) for b, lo, hi in (
+        (1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS), (32, 1, MAX_PAGES * BS),
+        (8, 80, 120))]
+    for b, lo, hi, nblk, splits, hq, hkv, hd in shapes:
         ctx = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEV).tolist()
         if hi == nblk * BS:
             ctx[0] = hi
         if b > 1:
             ctx[-1] = 0
-        ins = decode_inputs(gen, b, HQ, hkv, HD, BS, nblk, ctx, torch.bfloat16,
+        ins = decode_inputs(gen, b, hq, hkv, hd, BS, nblk, ctx, torch.bfloat16,
                             NUM_BLOCKS)
         live = ins[4] > 0
         want = ref.ref_paged_attention(*ins)
@@ -339,19 +375,21 @@ def phase_kernels(gen):
                          ("paged_attention", paged_attention)):
             got = fn(*ins)
             check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
-            e = compare(f"{name} bf16 B={b} Hkv={hkv} nblk={nblk} ctx {lo}..{hi}"
+            e = compare(f"{name} bf16 B={b} Hq={hq} Hkv={hkv} hd={hd} nblk={nblk} "
+                        f"ctx {lo}..{hi}"
                         + (f" splits={splits}" if splits and fn is not paged_attention
                            else ""), got, want, TOL["decode"][torch.bfloat16], live)
             errs[name] = max(errs[name], e)
-    for hkv in (HKV, CQ_HKV, G8_HKV):
+    for hq, hkv, hd in ((HQ, HKV, HD), (HQ, CQ_HKV, HD), (HQ, G8_HKV, HD),
+                        (MG_H, MG_H, MG_HD)):
         for ctx in (0, 37, 448):
-            ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, HQ, hkv, HD, torch.bfloat16)
+            ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, hq, hkv, hd, torch.bfloat16)
             want = ref.ref_chunked_prefill_attention(*ins, ctx)
-            e = compare(f"prefill bf16 Sc=64 T=512 Hkv={hkv} ctx={ctx}",
-                        chunked_prefill_attention(*ins, ctx), want,
+            what = f"prefill bf16 Sc=64 T=512 Hq={hq} Hkv={hkv} hd={hd} ctx={ctx}"
+            e = compare(what, chunked_prefill_attention(*ins, ctx), want,
                         TOL["prefill"][torch.bfloat16])
             errs["chunked_prefill_attention"] = max(errs["chunked_prefill_attention"], e)
-            compare(f"prefill bf16 Sc=64 T=512 Hkv={hkv} ctx={ctx} {ALT_TILE_ROWS}-row tiles",
+            compare(f"{what} {ALT_TILE_ROWS}-row tiles",
                     chunked_prefill_attention(*ins, ctx, tile_rows=ALT_TILE_ROWS), want,
                     TOL["prefill"][torch.bfloat16])
     # the cases of tests/test_kernels.py, both dtypes
@@ -421,21 +459,22 @@ def _sdpa_decode(q, kp, vp, bt, cl):
     return q[:, :, None], k, v, mask[:, None, None]
 
 
-def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES, hkv=HKV):
+def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES, hkv=HKV, hq=HQ, hd=HD):
     """Time one decode launch at batch ``b`` with contexts ``ctx`` over
-    tables of ``nblk`` pages (by default the main path's width) and ``hkv``
-    kv heads: split-K (its default split count, then 1, 2, 4 and 8 splits a
-    row) and the legacy kernel, beside one bound and one SDPA time."""
-    ins = decode_inputs(gen, b, HQ, hkv, HD, BS, nblk, ctx, torch.bfloat16,
+    tables of ``nblk`` pages (by default the main path's width), ``hq``
+    query and ``hkv`` kv heads of ``hd``: split-K (its default split count,
+    then 1, 2, 4 and 8 splits a row) and the legacy kernel, beside one
+    bound and one SDPA time."""
+    ins = decode_inputs(gen, b, hq, hkv, hd, BS, nblk, ctx, torch.bfloat16,
                         NUM_BLOCKS)
     item = 2
     live_pages = sum(-(-c // BS) for c in ctx)
-    nbytes = (2 * b * HQ * HD * item + sum(ctx) * hkv * HD * 2 * item
+    nbytes = (2 * b * hq * hd * item + sum(ctx) * hkv * hd * 2 * item
               + live_pages * 4 + b * 4)
-    flops = 4 * sum(ctx) * HQ * HD
+    flops = 4 * sum(ctx) * hq * hd
     sq, sk, sv, smask = _sdpa_decode(*ins)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shape = (f"B={b} Hq={HQ} Hkv={hkv} hd={HD} bs={BS} nblk={nblk} "
+    shape = (f"B={b} Hq={hq} Hkv={hkv} hd={hd} bs={BS} nblk={nblk} "
              f"sum(ctx)={sum(ctx)} bf16, default splits "
              f"{default_num_splits(b, hkv, nblk, BS, sms)}")
     splits_ms = {n: time_ms(lambda: paged_attention_splitk(*ins, num_splits=n))
@@ -459,22 +498,23 @@ def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES, hkv=HKV):
                  max_abs_err=errs["paged_attention"])]
 
 
-def _prefill_row(gen, errs, hkv):
+def _prefill_row(gen, errs, hkv, hq=HQ, hd=HD):
     """Time one engine chunk against the longest prefix of the table, with
-    ``hkv`` kv heads, beside the other tile height, one bound and SDPA."""
+    ``hq`` query and ``hkv`` kv heads of ``hd``, beside the other tile
+    height, one bound and SDPA."""
     item = 2
     sc, t, c = CHUNK, MAX_PAGES * BS, 448
-    ins = prefill_inputs(gen, sc, t, HQ, hkv, HD, torch.bfloat16)
+    ins = prefill_inputs(gen, sc, t, hq, hkv, hd, torch.bfloat16)
     keys = min(t, c + sc)
-    nbytes = 2 * sc * HQ * HD * item + keys * hkv * HD * 2 * item
-    flops = 4 * HD * HQ * sum(min(t, c + i + 1) for i in range(sc))
+    nbytes = 2 * sc * hq * hd * item + keys * hkv * hd * 2 * item
+    flops = 4 * hd * hq * sum(min(t, c + i + 1) for i in range(sc))
     mask = (torch.arange(t, device=DEV)[None] <= c + torch.arange(sc, device=DEV)[:, None])
     pq, pk, pv = (x.transpose(0, 1)[None] for x in ins)
     return dict(
         name="chunked_prefill_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
         replaces="src/repro/kernels/chunked_prefill.py:94",
-        shape=f"Sc={sc} T={t} ctx={c} Hq={HQ} Hkv={hkv} hd={HD} bf16",
+        shape=f"Sc={sc} T={t} ctx={c} Hq={hq} Hkv={hkv} hd={hd} bf16",
         ms=time_ms(lambda: chunked_prefill_attention(*ins, c)),
         other=(f"{ALT_TILE_ROWS}-row tiles",
                time_ms(lambda: chunked_prefill_attention(*ins, c, tile_rows=ALT_TILE_ROWS))),
@@ -491,16 +531,19 @@ def phase_timing(gen, errs):
     phase("4 kernel time")
     # decode as the serve runs it (batch 8, contexts near 100), then a
     # full batch of 32 with ragged contexts up to the table, long context,
-    # and batch 8 at codeqwen's MHA shape
+    # and batch 8 at codeqwen's MHA shape and at musicgen-medium's
     def serve_ctx():
         return torch.randint(80, 121, (8,), generator=gen, device=DEV).tolist()
     rows = (_decode_rows(gen, errs, 8, serve_ctx())
             + _decode_rows(gen, errs, 32, torch.randint(
                 1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
             + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK)
-            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=CQ_HKV))
-    # prefill at qwen3-4b's shape, then at codeqwen's MHA shape
-    rows += [_prefill_row(gen, errs, HKV), _prefill_row(gen, errs, CQ_HKV)]
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=CQ_HKV)
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=MG_H, hq=MG_H, hd=MG_HD))
+    # prefill at qwen3-4b's shape, then at codeqwen's MHA shape and at
+    # musicgen-medium's
+    rows += [_prefill_row(gen, errs, HKV), _prefill_row(gen, errs, CQ_HKV),
+             _prefill_row(gen, errs, MG_H, hq=MG_H, hd=MG_HD)]
     for r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
@@ -701,11 +744,12 @@ def _print_serve(online, offline, stats, wall):
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def _serve_paged(model, params, attn_impl, mix):
+def _serve_paged(model, params, attn_impl, mix, attach=None):
     """``mix`` (``SERVE_MIX`` or ``SMALL_MIX``) through a paged engine with
     ``attn_impl``: every request finishes with its tokens inside the
     vocabulary, every decode step and prefill chunk launches its kernel
-    once a layer, and no plain attention runs on the card. Returns
+    once a layer, and no plain attention runs on the card. ``attach``, if
+    given, is called with the engine before the requests go in. Returns
     (online, offline, engine, stats, wall seconds)."""
     cfg = model.cfg
     eng = EchoEngine(model, params, ECHO, num_blocks=NUM_BLOCKS, block_size=BS,
@@ -731,6 +775,8 @@ def _serve_paged(model, params, attn_impl, mix):
         doc = toks(mix["doc"])
         offline += [Request(prompt=doc + toks(mix["q"]), max_new_tokens=mix["new"],
                             task_type=TaskType.OFFLINE) for _ in range(mix["questions"])]
+    if attach is not None:
+        attach(eng)
     for r in online + offline:
         eng.submit(r)
 
@@ -1577,6 +1623,281 @@ def phase_serve_dense():
     print(f"  (split-K, prefill) launches: {launches}")
 
 
+# ------------------------------------------------------------------ multimodal
+def phase_serve_musicgen():
+    """Returns the model and its weights, which phases 21 and 22 reuse."""
+    phase("20 serve musicgen-medium at full width")
+    _free_card("the musicgen-medium init")
+    cfg = get_config("musicgen-medium")
+    model, params = _init_full_width(cfg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {b: default_num_splits(b, cfg.num_kv_heads, MAX_PAGES, BS, sms)
+              for b in (1, 2, 4, 8)}
+    print(f"  pool {NUM_BLOCKS} blocks x {BS} tokens = "
+          f"{model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB; split-K splits "
+          f"a row at {MAX_PAGES}-page tables, by decode batch: {splits}")
+    registry, tracer = MetricsRegistry(), Tracer()
+    online, offline, eng, stats, wall = _serve_paged(
+        model, params, "auto", SERVE_MIX,
+        attach=lambda e: instrument_engine(e, registry, tracer, replica=0))
+    _print_serve(online, offline, stats, wall)
+
+    # the probe saw every iteration; the port's checker reads both artifacts
+    probed = registry.get("iteration_seconds").labels("0").count
+    with tempfile.TemporaryDirectory() as tmp:
+        prom, trace = Path(tmp) / "metrics.prom", Path(tmp) / "trace.json"
+        registry.write(str(prom))
+        tracer.write(str(trace))
+        m, t = check_prometheus(str(prom)), check_trace(str(trace))
+        sizes = prom.stat().st_size, trace.stat().st_size
+    print(f"  obs: {probed} iterations probed of {len(stats.iterations)} recorded; "
+          f"Prometheus text {sizes[0]:,} B, {m}; trace JSON {sizes[1]:,} B, {t}, "
+          f"{tracer.dropped_events} dropped")
+    check(probed == len(stats.iterations), "the probe missed iterations")
+    check(m["samples"] > 0 and t["spans"] > 0 and t["instants"] > 0,
+          "empty observability artifacts")
+
+    traces = _profile_steps(_attention_steps(eng.runner), (SPLITK_DECODE, PREFILL_TC),
+                            "attention kernels")
+    for name, by_name in traces.items():
+        kern = SPLITK_DECODE if name.startswith("decode") else PREFILL_TC
+        got = _launches(by_name, (SPLITK_DECODE, PREFILL_TC, LEGACY_DECODE, "merge"))
+        check(got == _launches(by_name, (kern,)) == cfg.num_layers,
+              f"{name}: {got} attention launches, not one {kern} a layer")
+    check(ref.ref_paged_attention.cuda_calls == 0
+          and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+          "a plain attention ran on the card")
+    del eng
+    torch.cuda.empty_cache()
+    return model, params
+
+
+def _mm_inputs(cfg, b, s, frames, seed, device):
+    """Tokens (b, s) and conditioning frames (b, frames, mm_embed_dim),
+    float32, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    mm = torch.from_numpy(rng.standard_normal((b, frames, cfg.mm_embed_dim))
+                          .astype(np.float32))
+    return toks.to(device), mm.to(device)
+
+
+def _mrope_rows(b, s):
+    """Three distinct M-RoPE position rows (time, height, width of a
+    patch grid), (3, b, s) int64."""
+    grid = torch.arange(s)
+    return torch.stack([grid // 6, (grid // 3) % 2 + 2, grid % 3])[:, None].expand(3, b, s)
+
+
+def phase_dense_multimodal(model, params):
+    phase("21 the multimodal dense path")
+    cfg = model.cfg
+    toks, mm = _mm_inputs(cfg, 1, MM_S, MM_FRAMES, 3, DEV)
+    # a float32 copy of the same weights (bf16 upcast exactly), TF32 off
+    model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_map(lambda t: t.float(), params)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last16, cache16 = model.prefill(params, toks, mm)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        bare16, _ = model.prefill(params, toks)
+        last32, cache32 = model32.prefill(params32, toks, mm)
+        bare32, _ = model32.prefill(params32, toks)
+        # pad_cache, then decode steps fed the float32 path's greedy tokens
+        cache16 = model.pad_cache(cache16, MM_S, MM_S + MM_STEPS + 1)
+        cache32 = model32.pad_cache(cache32, MM_S, MM_S + MM_STEPS + 1)
+        cur = torch.argmax(last32, -1)
+        steps, finite = [], bool(torch.isfinite(last16).all())
+        for pos in range(MM_S, MM_S + MM_STEPS):
+            p = torch.tensor([pos], device=DEV)
+            lg16, cache16 = model.decode_step(params, cur, cache16, p)
+            lg32, cache32 = model32.decode_step(params32, cur, cache32, p)
+            finite &= bool(torch.isfinite(lg16).all())
+            steps.append(_rel(lg16[0].float(), lg32[0]))
+            cur = torch.argmax(lg32, -1)
+    del model32, params32, cache16, cache32
+    torch.cuda.empty_cache()
+    d_mm, d_bare = _rel(last16[0].float(), last32[0]), _rel(bare16[0].float(), bare32[0])
+    moved = _rel(last32[0], bare32[0])
+    print(f"  Model.prefill S={MM_S} with {MM_FRAMES} frames of {cfg.mm_embed_dim}, bf16: "
+          f"{t_prefill * 1e3:.1f} ms wall; last logits against the float32 copy "
+          f"rel_err={d_mm:.3e} (without frames {d_bare:.3e}), argmax agree "
+          f"{int(torch.argmax(last16)) == int(torch.argmax(last32))}; limit "
+          f"{DENSE_REL_LIMIT}")
+    print(f"  the frames move the float32 last logits by rel {moved:.3e} "
+          f"(limit: more than the bf16 rounding {d_mm:.3e})")
+    print(f"  pad_cache, {MM_STEPS} decode steps: logits finite {finite}; rel_err "
+          f"against float32 per step: {', '.join(f'{e:.3e}' for e in steps)}")
+    check(finite, "non-finite multimodal logits")
+    check(max([d_mm, d_bare] + steps) < DENSE_REL_LIMIT,
+          "the bf16 dense path strays from its float32 copy")
+    check(moved > d_mm, "the conditioning frames do not move the logits")
+
+    # tiny float32 multimodal configs: the engine's tokens and the dense
+    # path with frames, CPU against CUDA
+    for arch, cf in (("qwen2-vl-72b", None), ("llama4-scout-17b-a16e", 8.0),
+                     ("llama4-scout-17b-a16e", 0.5)):
+        cfg = get_config(arch).reduced()
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        tiny = Model(cfg)
+        cpu_params = tiny.init(torch.Generator().manual_seed(0))
+        cuda_params = tree_map(lambda t: t.to(DEV), cpu_params)
+        what = arch + (f" reduced, capacity factor {cf}" if cf else " reduced")
+        _reset_counts()
+        cpu_tokens, _ = _tiny_engine_tokens(tiny, cpu_params, "cpu", swap=False)
+        gpu_tokens, _ = _tiny_engine_tokens(tiny, cuda_params, DEV, swap=False)
+        check(cpu_tokens == gpu_tokens, f"{what}: CPU {cpu_tokens} != CUDA {gpu_tokens}")
+        cpu_swap, _ = _tiny_engine_tokens(tiny, cpu_params, "cpu", swap=True)
+        swap_tokens, eng = _tiny_engine_tokens(tiny, cuda_params, DEV, swap=True)
+        m = eng.bm.metrics
+        check(m.swapped_out_tokens > 0 and m.swapped_in_tokens > 0,
+              f"{what}: the host tier never swapped")
+        check(cpu_swap == swap_tokens, f"{what}: CPU+swap {cpu_swap} != CUDA+swap "
+              f"{swap_tokens}")
+        if cf is None or cf >= 1:
+            check(cpu_tokens == swap_tokens, f"{what}: the swap run's tokens differ")
+        check(paged_attention_splitk.launches > 0 and chunked_prefill_attention.launches > 0
+              and ref.ref_paged_attention.cuda_calls == 0
+              and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+              f"{what}: the card did not attend through both kernels only")
+        toks, mm = _mm_inputs(cfg, 2, 20, 6, 5, "cpu")
+        kw = dict(seq_lens=torch.tensor([20, 13]))
+        if cfg.mrope_sections:
+            kw["positions"] = _mrope_rows(2, 20)
+        want, _ = tiny.prefill(cpu_params, toks, mm, **kw)
+        got, _ = tiny.prefill(cuda_params, toks.to(DEV), mm.to(DEV),
+                              **{k: v.to(DEV) for k, v in kw.items()})
+        err = float((got.cpu() - want).abs().max())
+        print(f"  {what}: tokens equal on CPU and CUDA {cpu_tokens}; with swap "
+              f"(out {m.swapped_out_tokens} / in {m.swapped_in_tokens} tokens) "
+              f"{swap_tokens}; prefill with frames"
+              f"{' and three M-RoPE rows' if cfg.mrope_sections else ''} "
+              f"max_abs_err={err:.3e} (limit 1e-5)")
+        check(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5),
+              f"{what}: the prefill with frames differs on the card")
+
+
+def phase_replicas(model, params):
+    """Two engines share musicgen's weights on the card, each with its own
+    pool and host tier, as replicas 0 and 1 under a router: replica 0's
+    cached document moves to replica 1 as real pages, and a request
+    evacuated from replica 0 mid-decode finishes on replica 1."""
+    phase("22 two replicas on one card: prefix migration and evacuation")
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+
+    def engine():
+        return EchoEngine(model, params, ECHO, num_blocks=REP_BLOCKS, block_size=BS,
+                          chunk_size=CHUNK, max_pages_per_seq=MAX_PAGES,
+                          host_kv_blocks=REP_BLOCKS, time_model=TimeModel.h100(),
+                          clock="wall", device=DEV)
+    rep0, rep1 = Replica(0, engine()), Replica(1, engine())
+    router = Router([rep0, rep1])
+    grown = torch.cuda.memory_allocated() - held
+    pool = model.cache_bytes(1, 1) * BS * REP_BLOCKS
+    print(f"  two engines: {grown / 1e9:.3f} GB more on the card for two pools of "
+          f"{pool / 1e9:.3f} GB (a copy of the weights would add "
+          f"{_nbytes(params) / 1e9:.2f} GB)")
+    check(grown < 2 * pool + (64 << 20), "a replica copied the weights")
+    _reset_counts()
+
+    rng = np.random.default_rng(7)
+
+    def offline(n_new, *parts):
+        return Request(prompt=sum(parts, ()), max_new_tokens=n_new,
+                       task_type=TaskType.OFFLINE)
+
+    def toks(n):
+        return tuple(int(x) for x in rng.integers(0, cfg.vocab_size, n))
+    doc, question = toks(6 * BS), toks(12)       # the document fills 6 blocks
+    seed_req = offline(2, doc)
+    rep0.submit(seed_req)
+    rep0.engine.run(max_iters=500)
+    local = offline(16, doc, question)
+    rep0.submit(local)
+    rep0.engine.run(max_iters=500)
+    check(seed_req.done and local.done, "replica 0 left its requests unfinished")
+
+    # the export's pages, read off the card, and its wall time
+    exported = []
+    export = rep0.engine.export_prefix
+
+    def timed_export(tokens):
+        t0 = time.perf_counter()
+        out = export(tokens)
+        exported.append((out, time.perf_counter() - t0))
+        return out
+    rep0.engine.export_prefix = timed_export
+    moved = offline(16, doc, question)
+    t0 = time.perf_counter()
+    admitted = router.migrate_prefix(rep0, rep1, moved)
+    t_migrate = time.perf_counter() - t0
+    ((hbs, n_bytes), t_export), = exported
+    check(len(hbs) == len(doc) // BS and all(hb.payload is not None for hb in hbs),
+          f"exported {len(hbs)} blocks, not the document's {len(doc) // BS} with pages")
+    check(admitted == n_bytes > 0, f"admitted {admitted} B of {n_bytes} B exported")
+    check(rep1.engine.bm.metrics.migrated_in_blocks == len(hbs),
+          "replica 1 did not take in every block")
+    rep1.submit(moved)
+    t0 = time.perf_counter()
+    rep1.engine.run(max_iters=500)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    m1, st1 = rep1.engine.bm.metrics, rep1.engine.stats
+    print(f"  migrated {len(hbs)} blocks, {n_bytes:,} B ({n_bytes // len(hbs):,} B a "
+          f"block): export (device to host, {2 * cfg.num_layers * len(hbs)} page "
+          f"copies) {t_export * 1e3:.2f} ms, {n_bytes / t_export / 1e9:.2f} GB/s; "
+          f"migrate_prefix {t_migrate * 1e3:.2f} ms")
+    print(f"  replica 1: swapped in {m1.swapped_in_tokens} tokens, "
+          f"{st1.swapped_in_bytes:,} B, copy time {st1.swap_transfer_time * 1e3:.2f} ms "
+          f"({st1.swapped_in_bytes / max(st1.swap_transfer_time, 1e-9) / 1e9:.2f} GB/s); "
+          f"the question served in {t_serve * 1e3:.1f} ms wall")
+    print(f"  tokens: replica 0 {local.output_tokens}; replica 1 {moved.output_tokens}")
+    check(moved.done and m1.swapped_in_tokens > 0,
+          "replica 1 recomputed the prefix instead of restoring it")
+    check(moved.output_tokens == local.output_tokens,
+          "the migrated prefix gave other tokens than the local run")
+
+    # evacuation mid-decode
+    req = offline(16, toks(4 * BS))
+    rep0.submit(req)
+    for _ in range(100):
+        if req.n_output >= 4:
+            break
+        rep0.engine.step()
+    before = list(req.output_tokens)
+    evacuated = rep0.evacuate()
+    snap0 = rep0.engine.bm.occupancy_snapshot()
+    print(f"  evacuated {len(evacuated)} request(s) at {len(before)} of "
+          f"{req.max_new_tokens} tokens; replica 0 then holds {snap0['running']} "
+          f"running blocks ({snap0['cached']} cached, {snap0['free']} free); its "
+          f"runner keeps no state a request (the pool's pages are the block "
+          f"manager's)")
+    check(evacuated == [req] and not req.block_ids and snap0["running"] == 0
+          and not rep0.has_work(), "replica 0 kept the evacuated request")
+    rep1.submit(req)
+    rep1.engine.run(max_iters=500)
+    snap1 = rep1.engine.bm.occupancy_snapshot()
+    print(f"  replica 1 finished it: {req.output_tokens} (the first {len(before)} "
+          f"kept); then {snap1['running']} running blocks, {snap1['cached']} cached, "
+          f"{snap1['free']} free of {snap1['total']}")
+    check(req.done and req.output_tokens[:len(before)] == before,
+          "the evacuated request lost its tokens")
+    check(snap1["running"] == 0 and snap1["free"] + snap1["cached"] == snap1["total"],
+          "replica 1 leaked blocks")
+    check(paged_attention_splitk.launches > 0 and chunked_prefill_attention.launches > 0
+          and ref.ref_paged_attention.cuda_calls == 0
+          and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+          "the replicas did not attend through both kernels only")
+    del rep0, rep1, router
+    torch.cuda.empty_cache()
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1601,6 +1922,10 @@ def main():
     del model, params
     phase_parity_moe()
     phase_serve_dense()
+    model, params = phase_serve_musicgen()
+    phase_dense_multimodal(model, params)
+    phase_replicas(model, params)
+    del model, params
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

@@ -1,11 +1,14 @@
-"""Architecture config registry (``--arch <id>``) of the PyTorch port.
+"""Architecture config registry (``--arch <id>``) of the PyTorch port: the
+JAX package's ten architectures, field for field.
 
-Only the architectures whose whole serving path is ported are registered:
-the dense attention family (qwen3-4b, yi-9b, codeqwen1.5-7b, granite-34b),
-the routed MoE family (qwen3-moe-30b-a3b), pure SSM (mamba2-1.3b) and the
-hybrid RG-LRU family (recurrentgemma-9b). The multimodal architectures of
-the JAX package's registry (qwen2-vl-72b, llama4-scout-17b-a16e,
-musicgen-medium) are not ported yet.
+Families: dense attention (qwen3-4b, yi-9b, codeqwen1.5-7b, granite-34b),
+routed MoE (qwen3-moe-30b-a3b), pure SSM (mamba2-1.3b), the hybrid RG-LRU
+family (recurrentgemma-9b) and the multimodal configs, whose conditioning
+embeddings go through ``mm_proj`` (musicgen-medium; qwen2-vl-72b with
+M-RoPE; llama4-scout-17b-a16e, MoE with top-1 routing and a shared
+expert). Three do not fit one 80 GB card in bf16 at full width and run
+``.reduced()`` only: granite-34b (93.9 GB), qwen2-vl-72b (145 GB) and
+llama4-scout-17b-a16e (216 GB).
 """
 from __future__ import annotations
 
@@ -14,11 +17,14 @@ import importlib
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
+    "qwen2-vl-72b": "qwen2_vl_72b",                    # reduced only: 145 GB
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",  # reduced only: 216 GB
     "qwen3-4b": "qwen3_4b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-1.3b": "mamba2_1_3b",
     "yi-9b": "yi_9b",
-    "granite-34b": "granite_34b",
+    "musicgen-medium": "musicgen_medium",
+    "granite-34b": "granite_34b",                      # reduced only: 93.9 GB
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }

@@ -7,8 +7,9 @@ Ported from ``repro/models/model.py``: ``init``, ``_embed``, ``_logits``,
 slots), "ssm" and "rglru" layers. The serving engine runs attention stacks
 (dense and MoE) through ``TorchPagedRunner`` and state stacks (SSM and the
 hybrid RG-LRU family) through ``StateRunner``, which calls
-``decode_step``. Not ported yet: ``forward_train`` and the multimodal
-projection.
+``decode_step``. The multimodal configs carry ``mm_proj``: ``prefill``
+writes the projected conditioning embeddings over the leading token
+embeddings, as the JAX model does. Not ported yet: ``forward_train``.
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ class Model:
         one layer at a time (``dense_init``), so the peak is the weights
         plus one layer's float32 slice."""
         cfg = self.cfg
-        if cfg.multimodal:
-            raise NotImplementedError("the multimodal projection is not ported yet")
         params = {
             "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), self.dtype),
             "final_ln": torch.ones((cfg.d_model,), dtype=self.dtype,
@@ -50,11 +49,24 @@ class Model:
         if not cfg.tie_embeddings:
             params["unembed"] = embed_init(generator, (cfg.d_model, cfg.vocab_size),
                                            self.dtype)
+        if cfg.multimodal:
+            params["mm_proj"] = embed_init(generator, (cfg.mm_embed_dim, cfg.d_model),
+                                           self.dtype)
         return params
 
     # ------------------------------------------------------------- helpers
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()]
+    def _embed(self, params, tokens, mm_embeds=None):
+        h = params["embed"][tokens.long()]
+        if mm_embeds is not None and self.cfg.multimodal:
+            # JAX's dynamic_update_slice at (0, 0, 0): the projected frames
+            # replace the first rows and positions of the embeddings
+            fused = mm_embeds.to(self.dtype) @ params["mm_proj"]
+            bm, length = fused.shape[:2]
+            if bm > h.shape[0] or length > h.shape[1]:
+                raise ValueError(f"conditioning frames {tuple(fused.shape[:2])} do "
+                                 f"not fit the tokens {tuple(h.shape[:2])}")
+            h[:bm, :length] = fused          # a gathered copy: the table is untouched
+        return h
 
     def _logits(self, params, h):
         h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
@@ -75,14 +87,14 @@ class Model:
                                  device=device)
 
     # ------------------------------------------------------------- modes
-    def prefill(self, params, tokens, seq_lens=None, positions=None):
-        """tokens (B,S) -> (last_logits (B,V), cache). ``seq_lens`` (B,)
-        masks right padding and picks each row's last real position."""
-        if self.cfg.multimodal:
-            raise NotImplementedError("the multimodal projection is not ported yet")
+    def prefill(self, params, tokens, mm_embeds=None, seq_lens=None, positions=None):
+        """tokens (B,S) -> (last_logits (B,V), cache). ``mm_embeds``
+        (Bm,L,mm_embed_dim) of a multimodal config replace the embeddings of
+        the first Bm rows' first L positions after projection. ``seq_lens``
+        (B,) masks right padding and picks each row's last real position."""
         b, s = tokens.shape
         rope = self._rope(self._positions(b, s, positions, device=tokens.device))
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, mm_embeds)
         h, caches = tfm.stack_context(params["layers"], self.cfg, h, rope,
                                       seq_lens=seq_lens, return_cache=True)
         if seq_lens is not None:

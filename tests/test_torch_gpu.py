@@ -1,9 +1,11 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
-paths' shapes, and the engine's tokens on the card against the CPU, for an
-attention model (both decode schedules), a routed MoE model (capacity
-factors 8.0 and 0.5), a mamba2 model and a hybrid RG-LRU model; and the
-MoE layer's routing on the card against the CPU.
+paths' shapes (musicgen-medium's hd 64, 24-head MHA among them), and the
+engine's tokens on the card against the CPU, for an attention model (both
+decode schedules), a routed MoE model (capacity factors 8.0 and 0.5), a
+mamba2 model and a hybrid RG-LRU model; the MoE layer's routing on the
+card against the CPU; and a prefix migrated between two paged runners on
+the card.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 where only PyTorch is installed:
@@ -17,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.cluster import Replica, Router  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType  # noqa: E402
@@ -63,6 +66,14 @@ PAGED_DECODE_CASES = [
     (8, 32, 32, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
     (8, 32, 4, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
     (8, 32, 4, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    # musicgen-medium's MHA at hd 64, 24 heads (a count off a power of two):
+    # B 1, 8 and 32, at the serve's contexts and up to the table
+    (1, 24, 24, 64, 16, 32, [512]),
+    (8, 24, 24, 64, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (8, 24, 24, 64, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    (32, 24, 24, 64, 16, 32, [1, 16, 17, 511, 512, 0, 33, 64, 65, 100, 128, 129,
+                              200, 255, 256, 257, 300, 320, 383, 384, 400, 448,
+                              449, 480, 500, 2, 15, 31, 32, 48, 97, 510]),
 ]
 CHUNKED_CASES = [
     (64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37), (32, 64, 2, 1, 64, 30),
@@ -75,6 +86,9 @@ CHUNKED_CASES = [
     (64, 512, 32, 8, 128, 37),        # a frontier off every tile boundary
     (64, 512, 32, 32, 128, 0), (64, 512, 32, 32, 128, 448),         # codeqwen MHA
     (64, 512, 32, 4, 128, 0), (64, 512, 32, 4, 128, 448),           # G 8, Hkv 4
+    # musicgen-medium's MHA at hd 64, 24 heads: one head a tile of 64 rows,
+    # and a chunk whose last tile is ragged
+    (64, 512, 24, 24, 64, 0), (64, 512, 24, 24, 64, 448), (37, 300, 24, 24, 64, 200),
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
@@ -515,3 +529,47 @@ def test_hybrid_engine_tokens_on_card_equal_cpu(cuda):
     assert dense == want
     assert rglru_scan.launches - launches == 4 * len(prompts)
     assert ref.ref_rglru_scan.cuda_calls == plain
+
+
+def test_prefix_migration_between_two_runners_on_card(cuda):
+    """Two engines on the card, each with its own ``TorchPagedRunner`` pool
+    and host tier, sharing one copy of the weights (musicgen-medium
+    reduced, in bf16): the document's pages leave replica 0 for replica 1's
+    host tier, replica 1 restores them instead of recomputing, and its
+    greedy tokens equal replica 0's (the runs are serial, so every kernel
+    and product has the same shape)."""
+    cfg = dataclasses.replace(get_config("musicgen-medium").reduced(), dtype="bfloat16")
+    model = Model(cfg)
+    params = tree_map(lambda t: t.to(cuda), model.init(torch.Generator().manual_seed(0)))
+
+    def replica(i):
+        return Replica(i, EchoEngine(model, params, ECHO, num_blocks=32, block_size=8,
+                                     chunk_size=16, max_pages_per_seq=16,
+                                     host_kv_blocks=32, device=cuda))
+    rep0, rep1 = replica(0), replica(1)
+    router = Router([rep0, rep1])
+    rng = np.random.default_rng(5)
+    doc = tuple(int(x) for x in rng.integers(0, cfg.vocab_size, 48))    # 6 blocks
+    q = tuple(int(x) for x in rng.integers(0, cfg.vocab_size, 5))
+
+    def offline(prompt, n):
+        return Request(prompt=prompt, max_new_tokens=n, task_type=TaskType.OFFLINE)
+    rep0.submit(offline(doc, 2))
+    rep0.engine.run(max_iters=200)
+    local = offline(doc + q, 8)
+    rep0.submit(local)
+    rep0.engine.run(max_iters=200)
+    moved = offline(doc + q, 8)
+    launches = paged_attention_splitk.launches, chunked_prefill_attention.launches
+    admitted = router.migrate_prefix(rep0, rep1, moved)
+    assert admitted == router.stats.migrated_bytes > 0
+    assert rep1.engine.bm.metrics.migrated_in_blocks == router.stats.migrated_blocks == 6
+    rep1.submit(moved)
+    rep1.engine.run(max_iters=200)
+    assert local.done and moved.done
+    assert rep1.engine.bm.metrics.swapped_in_tokens > 0
+    assert moved.output_tokens == local.output_tokens
+    assert paged_attention_splitk.launches > launches[0]
+    assert chunked_prefill_attention.launches > launches[1]
+    snap = rep1.engine.bm.occupancy_snapshot()
+    assert snap["running"] == 0
