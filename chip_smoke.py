@@ -112,7 +112,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pool and host tier, as replicas under a ``cluster.Router``: a cached
      document's pages migrate from replica 0 to replica 1, whose greedy
      tokens equal replica 0's, and a request evacuated from replica 0
-     mid-decode finishes on replica 1 with no block leaked.
+     mid-decode finishes on replica 1 with no block leaked;
+ 23. the real-time front door (``repro_torch.serving``, ``repro_torch.rt``)
+     on full-width qwen3-4b, on a card freed of every earlier phase: the
+     link calibration of the card's pageable host copies (applied, 0.5-100
+     GB/s); phase 5's mix through ``EchoService.drive`` and through
+     ``AsyncEchoEngine`` on a paused ``ManualClock``, two engines on one
+     copy of the weights, with equal tokens and engine-domain finish times
+     request by request; ``EchoServer`` on loopback over a wall-clock
+     engine with the probes attached, eight concurrent clients, one of
+     which hangs up after its second token (its request aborted, its
+     blocks freed, no leak after the drain), with the wall TTFT and TPOT
+     of each class and the time each ``to_thread`` hop adds; and
+     ``python -m repro_torch.launch.serve`` as a subprocess on the card:
+     ``--serve`` answering three requests and draining on SIGINT, then a
+     trace replay in which every online request finishes.
 
 A profile's figures come from a trace that holds the device record of every
 launch, copy and memset of the step: the profiler at times drops the first
@@ -125,13 +139,18 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import gc
 import json
+import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -159,6 +178,9 @@ from repro_torch.models.state_cache import StateRunner  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, instrument_engine  # noqa: E402
 from repro_torch.obs.check import check_prometheus, check_trace  # noqa: E402
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.rt import AsyncEchoEngine, EchoServer, ManualClock, request_once  # noqa: E402
+from repro_torch.rt.calibrate import calibrate_link  # noqa: E402
+from repro_torch.serving import EchoService, HandleStatus  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -218,6 +240,15 @@ RGLRU_PR15_MS = {128: 0.0192, 3072: 0.0949}
 LONG_CTX, LONG_NBLK = [8192, 5000], 512
 # the prefill tile height not taken by default, timed beside the default
 ALT_TILE_ROWS = next(r for r in cp_mod.TILE_ROWS if r != cp_mod.DEFAULT_TILE_ROWS)
+# phase 23's TCP clients: SERVE_MIX's four online prompts and four offline
+# questions over one shared document; the online client HANG_UP (the
+# 96-token one) asks for HANG_UP_NEW tokens, far more than it reads, and
+# hangs up after its HANG_UP_AFTER-th, so the server's next writes fail
+# while the request still runs; and the wall seconds the CLI subprocess
+# may take to come up and to drain
+FRONT_DOOR_MIX = dict(SERVE_MIX, docs=1, questions=4)
+HANG_UP, HANG_UP_AFTER, HANG_UP_NEW = 1, 2, 64
+CLI_TIMEOUT = 300
 
 
 def check(cond, msg):
@@ -295,16 +326,20 @@ def compare(name, got, want, tol, live=None):
 
 
 # ------------------------------------------------------------------ phases
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     phase("1 device")
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda.is_available() is False)")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"device: {kind} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
-    print(smi.splitlines()[0])
+    print(_smi())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return kind, count
@@ -691,6 +726,9 @@ def phase_serve():
           f"{cfg.dtype}, {cfg.param_count / 1e9:.2f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
     online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SERVE_MIX)
+    # what phase 23's front door is held against: the engine's own loop
+    engine_loop = dict(tpot=float(np.mean([r.tpot() for r in online])),
+                       iter_ms=wall / len(stats.iterations) * 1e3)
     launches = {"paged_attention_splitk": paged_attention_splitk.launches,
                 "chunked_prefill_attention": chunked_prefill_attention.launches}
     check(min(launches.values()) > 0, "a kernel of the path never launched")
@@ -728,7 +766,7 @@ def phase_serve():
           f"the legacy decode step launched no {LEGACY_DECODE}")
     del eng, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, engine_loop
 
 
 def _print_serve(online, offline, stats, wall):
@@ -744,25 +782,20 @@ def _print_serve(online, offline, stats, wall):
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def _serve_paged(model, params, attn_impl, mix, attach=None):
-    """``mix`` (``SERVE_MIX`` or ``SMALL_MIX``) through a paged engine with
-    ``attn_impl``: every request finishes with its tokens inside the
-    vocabulary, every decode step and prefill chunk launches its kernel
-    once a layer, and no plain attention runs on the card. ``attach``, if
-    given, is called with the engine before the requests go in. Returns
-    (online, offline, engine, stats, wall seconds)."""
-    cfg = model.cfg
+def _paged_engine(model, params, **kw):
+    """A paged engine with the main path's pool and chunking on the card,
+    its libraries (cuBLAS handles, kernel modules) warmed on free pages."""
     eng = EchoEngine(model, params, ECHO, num_blocks=NUM_BLOCKS, block_size=BS,
-                     chunk_size=CHUNK, max_pages_per_seq=MAX_PAGES,
-                     time_model=TimeModel.h100(), clock="wall", device=DEV,
-                     attn_impl=attn_impl)
-    # warm the libraries (cuBLAS handles, kernel modules) on free pages
+                     chunk_size=CHUNK, max_pages_per_seq=MAX_PAGES, device=DEV, **kw)
     eng.runner.prefill_chunk(list(range(CHUNK)), 0, [0, 1, 2, 3])
     eng.runner.decode([1], [[0, 1, 2, 3, 4]], [CHUNK])
     torch.cuda.synchronize()
+    return eng
 
+
+def _mix_requests(vocab, mix):
+    """``mix``'s online and offline requests, tokens drawn from seed 0."""
     rng = np.random.default_rng(0)
-    vocab = cfg.vocab_size
 
     def toks(n):
         return tuple(int(x) for x in rng.integers(0, vocab, n))
@@ -775,6 +808,21 @@ def _serve_paged(model, params, attn_impl, mix, attach=None):
         doc = toks(mix["doc"])
         offline += [Request(prompt=doc + toks(mix["q"]), max_new_tokens=mix["new"],
                             task_type=TaskType.OFFLINE) for _ in range(mix["questions"])]
+    return online, offline
+
+
+def _serve_paged(model, params, attn_impl, mix, attach=None):
+    """``mix`` (``SERVE_MIX`` or ``SMALL_MIX``) through a paged engine with
+    ``attn_impl``: every request finishes with its tokens inside the
+    vocabulary, every decode step and prefill chunk launches its kernel
+    once a layer, and no plain attention runs on the card. ``attach``, if
+    given, is called with the engine before the requests go in. Returns
+    (online, offline, engine, stats, wall seconds)."""
+    cfg = model.cfg
+    eng = _paged_engine(model, params, time_model=TimeModel.h100(), clock="wall",
+                        attn_impl=attn_impl)
+    vocab = cfg.vocab_size
+    online, offline = _mix_requests(vocab, mix)
     if attach is not None:
         attach(eng)
     for r in online + offline:
@@ -1898,13 +1946,287 @@ def phase_replicas(model, params):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ front door
+def _replay_equals_drive(model, params):
+    """``SERVE_MIX`` through ``EchoService.drive`` on one engine and through
+    ``AsyncEchoEngine`` on a paused ``ManualClock`` (explicit arrival stamps)
+    on another that shares the weights: request by request the same tokens
+    and engine-domain finish times, every step through the kernels."""
+    vocab = model.cfg.vocab_size
+    eng_a = _paged_engine(model, params, time_model=TimeModel.h100())
+    online_a, offline_a = _mix_requests(vocab, SERVE_MIX)
+    t0 = time.perf_counter()
+    EchoService(eng_a).drive(online_a + offline_a, max_iters=5000)
+    t_drive = time.perf_counter() - t0
+    eng_b = _paged_engine(model, params, time_model=TimeModel.h100())
+    online_b, offline_b = _mix_requests(vocab, SERVE_MIX)
+    rt = AsyncEchoEngine(eng_b, clock=ManualClock())
+
+    async def replay():
+        async with rt:
+            hs = [await rt.submit_request(r) for r in online_b + offline_b]
+            return [await h.result() for h in hs]
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = asyncio.run(replay())
+    t_replay = time.perf_counter() - t0
+    chunks = sum(rec.n_prefill for rec in eng_b.stats.iterations)
+    steps = sum(1 for rec in eng_b.stats.iterations if rec.n_decode)
+    layers = model.cfg.num_layers
+    print(f"  drive {len(eng_a.stats.iterations)} iterations in {t_drive:.3f} s wall; "
+          f"the async replay {len(eng_b.stats.iterations)} in {t_replay:.3f} s "
+          f"({rt.stats.hops} hops); launches split-K "
+          f"{paged_attention_splitk.launches} ({layers} x {steps} decode steps), "
+          f"prefill {chunked_prefill_attention.launches} ({layers} x {chunks} chunks)")
+    check(paged_attention_splitk.launches == layers * steps > 0
+          and chunked_prefill_attention.launches == layers * chunks > 0
+          and ref.ref_paged_attention.cuda_calls == 0
+          and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+          "the replay did not attend through both kernels once a layer a step")
+    want = online_a + offline_a
+    for res, ref_req in zip(results, want):
+        check(res.status is HandleStatus.FINISHED and ref_req.done,
+              f"request {ref_req.rid}: {res.status.value} through the front door")
+        check(res.tokens == list(ref_req.output_tokens),
+              f"request {ref_req.rid}: front-door tokens differ from the drive's")
+        check(res.finish_time == ref_req.finish_time,
+              f"request {ref_req.rid}: finish {res.finish_time} != {ref_req.finish_time}")
+    leaks = rt.kv_leaks()
+    check(not any(leaks.values()), f"the replay leaked: {leaks}")
+    print(f"  {len(results)} requests: tokens and engine-domain finish times equal to "
+          f"the drive's; kv leaks after drain: none")
+    del eng_a, eng_b, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+async def _client(host, port, prompt, max_new, task, hang_up_after=None):
+    """One connection: send a request, read token lines until ``done`` or,
+    with ``hang_up_after``, close after that many tokens. Returns the token
+    lines and the done line (None when it hung up)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    spec = {"prompt": list(prompt), "max_new_tokens": max_new, "task_type": task}
+    if task == "online":
+        spec["slo"] = [2.0, 0.5]
+    writer.write(json.dumps(spec).encode() + b"\n")
+    await writer.drain()
+    tokens, done = [], None
+    try:
+        while done is None:
+            line = await reader.readline()
+            if not line:
+                raise ConnectionError("server closed mid-stream")
+            obj = json.loads(line)
+            if obj.get("done"):
+                done = obj
+            else:
+                tokens.append(obj)
+                if hang_up_after is not None and len(tokens) == hang_up_after:
+                    break
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except (ConnectionResetError, BrokenPipeError):
+            pass
+    return tokens, done
+
+
+def _tcp_serve(model, params, tm, engine_loop):
+    """A wall-clock engine behind ``EchoServer`` on loopback with the probe
+    and a tracer attached; eight concurrent clients, one hanging up."""
+    vocab = model.cfg.vocab_size
+    eng = _paged_engine(model, params, time_model=tm, clock="wall")
+    rt = AsyncEchoEngine(eng)
+    registry = rt.instrument(MetricsRegistry(), Tracer())
+    aborted = []
+    rt.events.on_abort(aborted.append)
+    hops = []                          # (enter, leave) of each worker hop
+    step_hop = rt._step_hop
+
+    def timed_hop():
+        t_in = time.perf_counter()
+        out = step_hop()
+        hops.append((t_in, time.perf_counter()))
+        return out
+    rt._step_hop = timed_hop
+    online, offline = _mix_requests(vocab, FRONT_DOOR_MIX)
+
+    async def serve():
+        await rt.start()
+        srv = await EchoServer(rt, port=0).start()
+        host, port = srv.address
+        clients = [_client(host, port, r.prompt, r.max_new_tokens, "online")
+                   if i != HANG_UP else
+                   _client(host, port, r.prompt, HANG_UP_NEW, "online", HANG_UP_AFTER)
+                   for i, r in enumerate(online)]
+        clients += [_client(host, port, r.prompt, r.max_new_tokens, "offline")
+                    for r in offline]
+        out = await asyncio.gather(*clients)
+        await srv.close()
+        return out, srv
+    _reset_counts()
+    t0 = time.perf_counter()
+    out, srv = asyncio.run(serve())
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention_splitk": paged_attention_splitk.launches,
+                "chunked_prefill_attention": chunked_prefill_attention.launches}
+    print(f"  {len(out)} clients over loopback in {wall:.3f} s wall: "
+          f"{srv.requests_served} requests served over {srv.connections} connections; "
+          f"launches {launches}")
+    check(min(launches.values()) > 0 and ref.ref_paged_attention.cuda_calls == 0
+          and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+          "the TCP serve did not attend through both kernels only")
+    finished = {"online": [], "offline": []}
+    for i, (tokens, done) in enumerate(out):
+        kind = "online" if i < len(online) else "offline"
+        if i == HANG_UP:
+            check(done is None and len(tokens) == HANG_UP_AFTER,
+                  f"the hanging-up client read {len(tokens)} tokens, done={done}")
+            continue
+        want = (online + offline)[i].max_new_tokens
+        check(done is not None and done["status"] == "finished"
+              and len(tokens) == done["n_tokens"] == want
+              and [t["index"] for t in tokens] == list(range(want)),
+              f"client {i} ({kind}): {len(tokens)} token lines of {want}, done={done}")
+        finished[kind].append(done)
+    check(srv.requests_served == len(out) - 1, "a request was not served")
+    check(rt.stats.aborted == 1 and len(aborted) == 1, "the hang-up did not abort")
+    victim = aborted[0].request
+    check(victim.block_ids == [] and victim.n_output >= HANG_UP_AFTER,
+          f"the aborted request kept {len(victim.block_ids)} blocks")
+    leaks = rt.kv_leaks()
+    check(not any(leaks.values()), f"the TCP serve leaked after drain: {leaks}")
+    first = registry.get("rt_ttft_wall_seconds").labels().count
+    check(first == len(out), f"rt_ttft_wall_seconds counted {first} first tokens, "
+          f"not the {len(out)} requests' (the hang-up's included)")
+    for kind, dones in finished.items():
+        ttft = [d["ttft_wall"] for d in dones]
+        tpot = [d["tpot_wall"] for d in dones]
+        print(f"  {kind}: {len(dones)} finished; wall TTFT s mean {np.mean(ttft):.4f} "
+              f"max {np.max(ttft):.4f}; wall TPOT s mean {np.mean(tpot):.4f} "
+              f"max {np.max(tpot):.4f}")
+    st = rt.stats
+    print(f"  RTStats: steps {st.steps}, hops {st.hops}, peak live {st.peak_live}, "
+          f"finished {st.finished}, aborted {st.aborted}, shed {st.shed}; the "
+          f"aborted request freed its blocks at {victim.n_output} tokens")
+    inside = [b - a for a, b in hops]
+    between = [b[0] - a[1] for a, b in zip(hops, hops[1:])]
+    print(f"  hop: {len(hops)} hops, worker {np.mean(inside) * 1e3:.2f} ms mean inside "
+          f"(engine.step), {np.mean(between) * 1e3:.3f} ms mean between hops on the "
+          f"loop (median {np.median(between) * 1e3:.3f}); phase 5's engine loop "
+          f"{engine_loop['iter_ms']:.2f} ms an iteration")
+    tpot_on = float(np.mean([d["tpot_wall"] for d in finished["online"]]))
+    print(f"  online wall TPOT: front door {tpot_on:.4f} s, phase 5's engine loop "
+          f"{engine_loop['tpot']:.4f} s ({tpot_on / engine_loop['tpot'] - 1:+.1%})")
+    del eng, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cli_on_card():
+    """``python -m repro_torch.launch.serve`` as a user runs it, on the card
+    (reduced qwen3-4b, ``--device`` left at cuda): the TCP front door with
+    three requests and SIGINT, then the trace replay."""
+    root = Path(__file__).resolve().parent
+    # unbuffered: the listening line must reach the pipe while it serves
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["--serve", "--port", "0", "--arch", "qwen3-4b"],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(CLI_TIMEOUT, proc.kill)
+    watchdog.start()
+    try:
+        head = []
+        for line in proc.stdout:
+            head.append(line.rstrip())
+            found = re.search(r"listening on ([\d.]+):(\d+)", line)
+            if found:
+                break
+        check(found is not None, f"the CLI never listened: {head} "
+              f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+        host, port = found.group(1), int(found.group(2))
+        print(f"  the CLI listened {time.perf_counter() - t0:.1f} s after its start")
+
+        async def three():
+            return await asyncio.gather(*[
+                request_once(host, port, [1, 2, 3 + i] * 8, max_new_tokens=8)
+                for i in range(3)])
+        outs = asyncio.run(three())
+        proc.send_signal(signal.SIGINT)
+        rest, err = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        watchdog.cancel()
+        proc.kill()
+    text = "\n".join(head) + "\n" + rest
+    for line in text.splitlines():
+        print(f"  cli> {line}")
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}: {err[-2000:]}")
+    check(all(o["status"] == "finished" and len(o["tokens"]) == 8 for o in outs),
+          f"the CLI's answers: {outs}")
+    check(any(ln.startswith("link calibrated on") for ln in head),
+          "the CLI printed no applied link calibration")
+    check("kv leaks after drain: none" in rest and "served 3 requests" in rest,
+          "the CLI did not drain three requests without leaks")
+    replay = subprocess.run(cmd + ["--arch", "qwen3-4b", "--duration", "2", "--n-docs", "1",
+                                   "--questions", "2"], cwd=root, env=env,
+                            capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    for line in replay.stdout.splitlines():
+        print(f"  cli> {line}")
+    found = re.search(r"online finished: (\d+)/(\d+)", replay.stdout)
+    check(replay.returncode == 0 and found and found.group(1) == found.group(2),
+          f"the CLI replay: rc {replay.returncode}, {replay.stderr[-2000:]}")
+
+
+def phase_front_door(engine_loop):
+    """The real-time front door on full-width qwen3-4b: the link
+    calibration, the async loop against the replay, the TCP server on the
+    wall clock, and the CLI."""
+    phase("23 the real-time front door on qwen3-4b at full width")
+    t_phase = time.perf_counter()
+    _free_card("the qwen3-4b init")
+    tm = TimeModel.h100()
+    cal = calibrate_link(tm, device=DEV)
+    print(f"  {cal.summary()}; {_smi()}")
+    by_size = {}
+    for i, (n, t) in enumerate(cal.samples):
+        by_size.setdefault(n, ([], []))[i % 2].append(t)
+    for n, (up, down) in by_size.items():
+        print(f"    {n >> 10} KiB: host to device {n / np.median(up) / 1e9:.2f} GB/s "
+              f"({', '.join(f'{t * 1e6:.0f}' for t in up)} us), device to host "
+              f"{n / np.median(down) / 1e9:.2f} GB/s "
+              f"({', '.join(f'{t * 1e6:.0f}' for t in down)} us)")
+    print("    under a 512x512 float32 product: "
+          + ", ".join(f"{n >> 10} KiB {t * 1e6:.0f} us" for _, n, t in cal.overlap_samples)
+          + f" (the product alone {cal.overlap_samples[0][0] * 1e6:.0f} us)")
+    check(cal.applied, f"link calibration not applied: {cal.error}")
+    check(0.5 <= cal.bandwidth_gbs <= 100.0,
+          f"fitted link {cal.bandwidth_gbs:.2f} GB/s outside 0.5-100")
+    model = Model(get_config("qwen3-4b"))
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print("  the front door against the replay (ManualClock, two engines on one "
+          "copy of the weights)")
+    _replay_equals_drive(model, params)
+    print("  TCP on loopback, wall clock")
+    _tcp_serve(model, params, tm, engine_loop)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  the CLI on the card")
+    _cli_on_card()
+    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
     phase_build()
     errs = phase_kernels(gen)
     rows = phase_timing(gen, errs)
-    launches = phase_serve()
+    launches, engine_loop = phase_serve()
     phase_parity()
     ssd_err = phase_ssd_kernel(gen)
     rows.append(phase_ssd_timing(gen, ssd_err))
@@ -1926,6 +2248,7 @@ def main():
     phase_dense_multimodal(model, params)
     phase_replicas(model, params)
     del model, params
+    phase_front_door(engine_loop)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

@@ -3,9 +3,10 @@ version on the card, on the cases of tests/test_kernels.py and at the main
 paths' shapes (musicgen-medium's hd 64, 24-head MHA among them), and the
 engine's tokens on the card against the CPU, for an attention model (both
 decode schedules), a routed MoE model (capacity factors 8.0 and 0.5), a
-mamba2 model and a hybrid RG-LRU model; the MoE layer's routing on the
-card against the CPU; and a prefix migrated between two paged runners on
-the card.
+mamba2 model and a hybrid RG-LRU model, and through the real-time front
+door; the MoE layer's routing on the card against the CPU; a prefix
+migrated between two paged runners on the card; and the link
+calibration of the card's host copies.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 where only PyTorch is installed:
@@ -573,3 +574,58 @@ def test_prefix_migration_between_two_runners_on_card(cuda):
     assert chunked_prefill_attention.launches > launches[1]
     snap = rep1.engine.bm.occupancy_snapshot()
     assert snap["running"] == 0
+
+
+def test_calibrate_link_applies_on_card(cuda):
+    """The link calibration measures the card's pageable copies and fits."""
+    from repro_torch.core import TimeModel
+    from repro_torch.rt import calibrate_link
+    tm = TimeModel.h100()
+    cal = calibrate_link(tm, device=cuda)
+    assert cal.applied and cal.error is None
+    assert cal.backend == torch.cuda.get_device_name(cuda)
+    assert tm.swap_byte == cal.swap_byte > 0.0
+    assert 0.5 < cal.bandwidth_gbs < 100.0
+    assert len(cal.samples) == 18 and len(cal.overlap_samples) == 6
+
+
+def test_front_door_tokens_on_card_equal_cpu(cuda):
+    """A tiny float32 model through ``AsyncEchoEngine`` on a paused
+    ``ManualClock``: the card's tokens and finish times equal the CPU's,
+    through the kernels."""
+    import asyncio
+    from repro_torch.rt import AsyncEchoEngine, ManualClock
+    cfg = ModelConfig(name="tiny-dense", family="dense", source="test",
+                      num_layers=2, d_model=64, vocab_size=128, num_heads=4,
+                      num_kv_heads=2, head_dim=16, d_ff=128, dtype="float32",
+                      rope_theta=10_000.0)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    specs = [(tuple(int(x) for x in rng.integers(0, 128, n)), task, at)
+             for n, task, at in ((40, TaskType.ONLINE, 0.0), (96, TaskType.ONLINE, 0.05),
+                                 (56, TaskType.OFFLINE, 0.0), (56, TaskType.OFFLINE, 0.0))]
+
+    def serve(device, weights):
+        eng = EchoEngine(model, weights, ECHO, num_blocks=64, block_size=8, chunk_size=16,
+                         max_pages_per_seq=16, device=device)
+        reqs = [Request(prompt=p, max_new_tokens=8, task_type=task, arrival_time=at,
+                        slo=SLO(10, 10) if task is TaskType.ONLINE else None)
+                for p, task, at in specs]
+
+        async def main():
+            rt = AsyncEchoEngine(eng, clock=ManualClock())
+            async with rt:
+                hs = [await rt.submit_request(r) for r in reqs]
+                results = [await h.result() for h in hs]
+            assert not any(rt.kv_leaks().values())
+            return [(r.status.value, r.tokens, r.finish_time) for r in results]
+        return asyncio.run(main())
+
+    want = serve("cpu", params)
+    launches = paged_attention_splitk.launches, chunked_prefill_attention.launches
+    got = serve(cuda, tree_map(lambda t: t.to(cuda), params))
+    assert got == want
+    assert all(status == "finished" for status, _, _ in got)
+    assert paged_attention_splitk.launches > launches[0]
+    assert chunked_prefill_attention.launches > launches[1]
