@@ -7,12 +7,13 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name and power limit;
-  2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-     nvcc for sm_90a, one process per source, all started together (seconds,
-     and ptxas' registers / shared memory / spills; the redesigned kernels
-     (bf16 tensor-core prefill, warp-split legacy decode, clustered split-K
-     decode, 3xTF32 SSD scan, the RG-LRU scan's shared-memory ring) must
-     not spill);
+  2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
+     five forward kernels and, since the training phases, the two scans'
+     backward kernels) with nvcc for sm_90a, one process per source, all
+     started together (seconds, and ptxas' registers / shared memory /
+     spills; the redesigned kernels (bf16 tensor-core prefill, warp-split
+     legacy decode, clustered split-K decode, 3xTF32 SSD scan, the RG-LRU
+     scan's shared-memory ring) must not spill);
   3. attention kernels (split-K and legacy warp-split decode, chunked
      prefill) against their plain PyTorch versions on the card, at the main
      path's shapes (qwen3-4b: Hq 32, Hkv 8, hd 128, page 16, bf16), at the
@@ -126,7 +127,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of each class and the time each ``to_thread`` hop adds; and
      ``python -m repro_torch.launch.serve`` as a subprocess on the card:
      ``--serve`` answering three requests and draining on SIGINT, then a
-     trace replay in which every online request finishes.
+     trace replay in which every online request finishes;
+ 24. the two scans' backward kernels (port-only: the JAX package
+     differentiates its XLA scans) against their plain backwards in
+     float32, to 1e-5 of the largest plain value and in relative norm,
+     each free of spills: RG-LRU at recurrentgemma's training shape (B 1,
+     W 4096, S 4096), S 4000, 300 and 37, W 4104 and a misaligned view;
+     SSD at mamba2's (B 1, H 64, P 64, N 128, chunk 64, S 4096), at S 4032
+     whose last 32 steps are the model's padding, and on the cases of
+     tests/test_kernels.py, normal and slow decay; then each one's time at
+     S 4096 beside its bound (the SSD's also beside its 3xTF32 tensor-core
+     bound) and its plain backward's;
+ 25. train full-width mamba2-1.3b (48 layers, bf16, seeded random
+     weights) for 12 steps of ``make_train_step`` at its defaults (peak lr
+     3e-4, warmup 100) at B 1, S 4096 from ``TokenStream``, on a card freed
+     of earlier phases: the mean of the last 3 losses below that of the
+     first 3; every leaf's gradient finite and non-zero at every step; 96
+     SSD forward launches (each layer again under checkpointing) and 48
+     backward launches a step, no plain version on the card; peak memory,
+     step wall, tokens/s, 6 N T over the step as a share of 989 TFLOP/s,
+     and a profile of one step; the first step's loss and gradient norm
+     through autograd of the plain scans on the card, on the same bf16
+     weights (printed: bf16 rounding alone moves this model's gradient
+     norm further, see below) and on a float32 copy of them, where they
+     must equal the kernels' to 1e-3 (a check applied after the last
+     phase, so every phase runs first); each bf16 path's gap from the
+     float32 step is printed beside the kernel-vs-plain gap;
+ 26. the same for recurrentgemma-9b at full width with its depth cut to 14
+     layers (four checkpointed (rglru, rglru, attn) units and the unrolled
+     pair; at 38 layers its weights, gradients and AdamW moments alone are
+     102 GB): 18 RG-LRU forward and 10 backward launches a step; its first
+     step through the kernels and through the plain scans equal to 1e-3 on
+     the bf16 weights, held after the last phase;
+ 27. the same for full-width qwen3-4b, whose training path runs no kernel
+     of the repo, as in JAX: the in-place optimizer over 8.8 GB of weights,
+     8.8 GB of gradients and 35.3 GB of moments (its first-step
+     comparison, bf16, held as phase 26's);
+ 28. tiny and reduced float32 configs (dense, qwen3-moe, mamba2,
+     recurrentgemma) trained 3 steps on the CPU and on the card: losses and
+     gradient norms to 1e-5, the first step's gradients and parameter
+     steps to the CPU tests' tolerances, the parameter gaps in lr units;
+ 29. ``python -m repro_torch.launch.train --device cuda`` on reduced
+     mamba2 for 3 steps, its checkpoint restored on the card leaf for leaf.
 
 A profile's figures come from a trace that holds the device record of every
 launch, copy and memset of the step: the profiler at times drops the first
@@ -140,6 +182,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -164,23 +207,31 @@ from repro_torch.cluster import Replica, Router  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import ECHO, SLO, EchoEngine, Request, TaskType, TimeModel  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     default_num_splits, paged_attention, paged_attention_splitk)
 from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.state_cache import StateRunner  # noqa: E402
+from repro_torch.models.transformer import segments as tfm_segments  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, instrument_engine  # noqa: E402
 from repro_torch.obs.check import check_prometheus, check_trace  # noqa: E402
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.rt import AsyncEchoEngine, EchoServer, ManualClock, request_once  # noqa: E402
 from repro_torch.rt.calibrate import calibrate_link  # noqa: E402
 from repro_torch.serving import EchoService, HandleStatus  # noqa: E402
+from repro_torch.training import adamw_init, make_train_step  # noqa: E402
+from repro_torch.training import train_step as train_step_mod  # noqa: E402
+from repro_torch.training.checkpoint import restore as restore_checkpoint  # noqa: E402
+from repro_torch.training.data import TokenStream  # noqa: E402
+from repro_torch.training.optimizer import global_norm  # noqa: E402
+from repro_torch.training.train_step import loss_and_grads  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -249,6 +300,22 @@ ALT_TILE_ROWS = next(r for r in cp_mod.TILE_ROWS if r != cp_mod.DEFAULT_TILE_ROW
 FRONT_DOOR_MIX = dict(SERVE_MIX, docs=1, questions=4)
 HANG_UP, HANG_UP_AFTER, HANG_UP_NEW = 1, 2, 64
 CLI_TIMEOUT = 300
+# phases 24-29, training: the backward kernels' names in ptxas' output and
+# in traces; their tolerance against the plain backwards (float32, to that
+# share of the plain gradient's largest value and in relative norm); the
+# train_4k shape (B 1, S 4096) and the steps of each full-width run, whose
+# first step must agree with autograd of the plain scans to PLAIN_RTOL (in
+# bf16, and for mamba2 on a float32 copy: bf16 rounding moves mamba2's
+# gradient norm further than that, in the JAX package too, so two orders
+# of float32 sums in its scans do as well; tools/bf16_spread.py);
+# recurrentgemma-9b's depth, cut so its weights, gradients and AdamW moments
+# (12 bytes a parameter, 45.7 GB) fit the card beside the activations; and
+# the CPU-vs-card runs' steps, batch and sequence
+SSD_BWD_KERNEL, RGLRU_BWD_KERNEL = "ssd_bwd_kernel", "rglru_bwd_ring_kernel"
+BWD_TOL = 1e-5
+TRAIN_SEQ, TRAIN_STEPS, PLAIN_RTOL = 4096, 12, 1e-3
+R_TRAIN_LAYERS = 14
+TRAIN_STEPS_PARITY, PARITY_BATCH, PARITY_SEQ = 3, 2, 32
 
 
 def check(cond, msg):
@@ -2220,6 +2287,544 @@ def phase_front_door(engine_loop):
     print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+# ------------------------------------------------------------------ training
+def _bwd_compare(name, got, want):
+    """A backward kernel's gradient against its plain backward (float32):
+    elementwise to BWD_TOL of the plain gradient's largest value, and in
+    relative norm to BWD_TOL."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{name}: shape {tuple(got.shape)} or non-finite values")
+    scale = float(want.abs().max().clamp_min(1e-30))
+    err = float((got - want).abs().max())
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want).clamp_min(1e-30))
+    ok = err <= BWD_TOL * scale and rel < BWD_TOL
+    print(f"  {name}: max_abs_err={err:.3e} (of max {scale:.3e}) rel_err={rel:.3e} "
+          f"tol={BWD_TOL:g} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: the backward kernel disagrees with its plain backward")
+    return err
+
+
+def _no_spills(lib, kern):
+    """ptxas' report of ``kern`` in ``lib``'s build: no spill stores or loads."""
+    entry, found = "", []
+    for line in build.build_log[lib].splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif "spill stores" in line and kern in entry:
+            found.append(line.strip())
+    if not build.build_log[lib]:
+        print(f"  {kern}: spill check skipped (library from the build cache)")
+        return
+    spilled = [x for x in found if " 0 bytes spill stores, 0 bytes spill loads" not in x]
+    print(f"  {kern}: {len(found)} instantiations, {len(spilled)} spilling")
+    check(found and not spilled, f"{kern}: no ptxas report, or spills: {spilled}")
+
+
+def ssd_bwd_work(b, s, h, p, n, chunk):
+    """Bytes and operations of the SSD backward: each input read once (x,
+    dt_a, B, C, the per-chunk states, dy, d final state) and each output
+    written once (dx, d dt_a, dB, dC); the multiply-adds its formulas need
+    on the causal half of each chunk: C.B^T once a chunk (B and C are
+    shared by the heads), and per head the products with dy x^T, W G, W D
+    and five state-sized products (dH B, x dH, dy H0, H0 C, the carried dH)."""
+    nc = s // chunk
+    elems = 3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + (nc + 1) * b * h * p * n
+    tri = chunk * (chunk + 1) // 2
+    macs = b * nc * (tri * n + h * (2 * tri * n + 2 * tri * p + 5 * chunk * p * n))
+    return 4 * elems, 2 * macs
+
+
+def _ssd_padded(x, dta, bm, cm, pad):
+    """The last ``pad`` steps as ``ssm_context`` pads a sequence to a chunk
+    multiple: dt = 0 (decay 1) and zero x, B and C."""
+    for t in (x, dta, bm, cm):
+        t[:, t.shape[1] - pad:] = 0.0
+
+
+def phase_backward_kernels(gen):
+    """Returns the timing rows of the two backward kernels."""
+    phase("24 backward kernels vs plain backwards (float32)")
+    _no_spills("rglru_scan_bwd", RGLRU_BWD_KERNEL)
+    _no_spills("ssd_scan_bwd", SSD_BWD_KERNEL)
+    rg_err = 0.0
+    # (b, s, w, offset): recurrentgemma's training shape (S 4096), S 4000
+    # (a partial last slab), short S, ragged channel tiles, and a view one
+    # element into its buffer; a from the model's gate
+    for b, s, w, offset in [(1, 4096, W, 0), (1, 4000, W, 0), (2, 300, W, 0),
+                            (1, 37, W, 0), (1, 300, 4104, 0), (1, 128, W, 1)]:
+        a, bb = rglru_inputs(gen, b, s, w)
+        g = torch.randn((b, s, w), generator=gen, device=DEV)
+        if offset:
+            a = torch.cat([a.new_zeros(offset), a.flatten()])[offset:].view(b, s, w)
+            check(a.data_ptr() % 16 != 0, "the offset view is aligned")
+        h = rglru_scan(a, bb)
+        got = rglru_mod.rglru_scan_bwd(a, h, g)
+        want = ref.ref_rglru_scan_bwd(a, h, g)
+        for what, x, y in zip(("da", "db"), got, want):
+            rg_err = max(rg_err, _bwd_compare(
+                f"rglru_bwd b={b} s={s} w={w}{' offset 1' if offset else ''} {what}", x, y))
+    ssd_err = 0.0
+    cases = [(2, 64, 2, 8, 4, 16, 0), (1, 128, 4, 16, 8, 32, 0), (3, 32, 1, 4, 16, 16, 0),
+             (1, TRAIN_SEQ, SSD_H, SSD_P, SSD_N, M_BLOCK, 0),
+             (1, TRAIN_SEQ - M_BLOCK, SSD_H, SSD_P, SSD_N, M_BLOCK, 32)]
+    for b, s, h, p, n, chunk, pad in cases:
+        for slow in (False, True):
+            x, dta, bm, cm, _ = ssd_inputs(gen, b, s, h, p, n, slow)
+            _ssd_padded(x, dta, bm, cm, pad)
+            y, final, states = ssd_scan(x, dta, bm, cm, chunk=chunk, return_all_states=True)
+            dy, dfinal = torch.randn_like(y), torch.randn_like(final)
+            dy[:, s - pad:] = 0.0
+            got = ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+            want = ssd_mod.ssd_chunked_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+            tag = (f"ssd_bwd b={b} s={s}{f' ({s - pad} padded)' if pad else ''} h={h} p={p} "
+                   f"n={n} chunk={chunk}{' slow-decay' if slow else ''}")
+            for what, gg, ww in zip(("dx", "d dt_a", "dB", "dC"), got, want):
+                ssd_err = max(ssd_err, _bwd_compare(f"{tag} {what}", gg, ww))
+    rows = []
+    a, bb = rglru_inputs(gen, 1, TRAIN_SEQ, W)
+    h = rglru_scan(a, bb)
+    g = torch.randn_like(h)
+    nbytes = 5 * 4 * TRAIN_SEQ * W                 # a, h, g in; da, db out
+    t_bound, by = bound(nbytes, 4 * TRAIN_SEQ * W, torch.float32)
+    rows.append(dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        replaces="port-only: the JAX package differentiates its XLA associative scan "
+                 "(src/repro/models/rglru.py:66)",
+        shape=f"B=1 S={TRAIN_SEQ} W={W} f32",
+        ms=time_ms(lambda: rglru_mod.rglru_scan_bwd(a, h, g)),
+        plain_ms=time_ms(lambda: ref.ref_rglru_scan_bwd(a, h, g), iters=5, warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by, max_abs_err=rg_err))
+    b, s, hh, p, n, chunk = 1, TRAIN_SEQ, SSD_H, SSD_P, SSD_N, M_BLOCK
+    x, dta, bm, cm, _ = ssd_inputs(gen, b, s, hh, p, n)
+    y, final, states = ssd_scan(x, dta, bm, cm, chunk=chunk, return_all_states=True)
+    dy, dfinal = torch.randn_like(y), torch.randn_like(final)
+    sbytes, flops = ssd_bwd_work(b, s, hh, p, n, chunk)
+    s_bound, s_by = bound(sbytes, flops, torch.float32)
+    rows.append(dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="port-only: the JAX package differentiates its XLA ssd_chunked "
+                 "(src/repro/models/ssm.py:61)",
+        shape=f"B={b} S={s} H={hh} P={p} N={n} chunk={chunk} f32",
+        ms=time_ms(lambda: ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal),
+                   iters=10),
+        plain_ms=time_ms(lambda: ssd_mod.ssd_chunked_bwd(x, dta, bm, cm, chunk, states, dy,
+                                                         dfinal), iters=10),
+        library_ms=None, bound_ms=s_bound, bound_by=s_by, max_abs_err=ssd_err))
+    # the same products on the tensor cores in 3xTF32, as the forward's row
+    # states it: three TF32 products each (495 TFLOP/s dense, NVIDIA data sheet)
+    tc_bound = max((sbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (3 * flops / 495e12 * 1e3, "operations"))
+    tc = (f"; tensor-core bound {tc_bound[0]:.4f} ms ({tc_bound[1]}: 3 x {flops / 1e9:.3f} "
+          f"GFLOP at 495 TFLOP/s TF32), kernel at {rows[1]['ms'] / tc_bound[0]:.2f} x it")
+    for r, work in zip(rows, (f"{nbytes / 1e6:.2f} MB", f"{sbytes / 1e6:.2f} MB, "
+                              f"{flops / 1e9:.3f} GFLOP")):
+        print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {work}; float32), kernel at "
+              f"{r['ms'] / r['bound_ms']:.2f} x it{tc if r is rows[1] else ''}; plain "
+              f"{r['plain_ms']:.4f} ms, library none (no single PyTorch call computes "
+              f"the scan's adjoint); {_smi()}")
+    torch.cuda.synchronize()
+    return rows
+
+
+class _PlainScans:
+    """Within it the model's two scans run their plain forwards on the
+    card, differentiated by autograd: a check-only comparison."""
+
+    def __enter__(self):
+        self.saved = ops.ssd_scan, ops.rglru_scan
+
+        def ssd(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
+                return_all_states=False):
+            return ssd_chunked(x, dt_a, b_mat, c_mat, chunk, initial_state=initial_state,
+                               return_all_states=return_all_states)
+        ops.ssd_scan, ops.rglru_scan = ssd, ref.ref_rglru_scan
+
+    def __exit__(self, *exc):
+        ops.ssd_scan, ops.rglru_scan = self.saved
+
+
+class _GradWitness:
+    """Within it each step's gradients are checked as ``make_train_step``
+    hands them to the optimizer: one (finite, non-zero) flag pair per leaf,
+    kept on the card and read once at the end; the update itself is
+    untouched."""
+
+    def __enter__(self):
+        self.flags, self.inner = [], train_step_mod.adamw_update
+
+        def update(params, grads, state, **kw):
+            self.flags.append(torch.stack([torch.stack([torch.isfinite(g).all(), g.any()])
+                                           for g in tree_leaves(grads)]))
+            return self.inner(params, grads, state, **kw)
+        train_step_mod.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        train_step_mod.adamw_update = self.inner
+
+    def bad_leaves(self):
+        """(step, leaf) of every non-finite or all-zero gradient."""
+        flags = torch.stack(self.flags).cpu()
+        return [(i, k) for i, k in zip(*np.nonzero(~flags.all(-1).numpy()))]
+
+
+def _gemm_kind(name):
+    """A device kernel's kind by its name: cuBLAS GEMMs ("nvjet", "gemm",
+    "xmma"), float32 ones among them (SIMT "f32f32" / "sgemm" names)."""
+    low = name.lower()
+    if not any(k in low for k in ("gemm", "nvjet", "xmma")):
+        return None
+    return "f32" if any(k in low for k in ("f32f32", "sgemm")) else "other"
+
+
+def _train_profile(step_fn, wall_ms, ours):
+    """One traced training step: device busy share against the untraced
+    step wall, the kernels that took longest, our kernels, the GEMMs by
+    kind, and the launches made inside ``adamw_update`` (its own range).
+    Returns {device kernel or copy name: (ms, launches)}."""
+    from torch.profiler import record_function
+    inner = train_step_mod.adamw_update
+
+    def marked(*a, **k):
+        with record_function("adamw_update"):
+            return inner(*a, **k)
+    train_step_mod.adamw_update = marked
+    try:
+        for _ in range(TRACE_ATTEMPTS):
+            prof, step, dropped, _ = _trace(step_fn)
+            if not dropped:
+                break
+        check(not dropped, "every trace of the training step lacks device records")
+    finally:
+        train_step_mod.adamw_update = inner
+    events = prof.profiler.kineto_results.events()
+    cpu = torch.autograd.DeviceType.CPU
+    rng = next(e for e in events if e.name() == "adamw_update" and e.device_type() == cpu)
+    in_opt = {e.correlation_id() for e in events
+              if e.device_type() == cpu and any(c in e.name() for c in DEVICE_CALLS)
+              and rng.start_ns() <= e.start_ns() <= rng.end_ns()}
+    dev = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+           and e.correlation_id() in step]
+    busy = sum(e.duration_ns() for e in dev) / 1e6
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
+    print(f"  profile of one step: device busy {busy:.1f} ms of the {wall_ms:.1f} ms "
+          f"step ({busy / wall_ms:.1%}), {len(dev)} device kernels and copies")
+    for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {t:9.2f} ms x{n:<5d} {kname[:90]}")
+    groups = [(f"ours ({', '.join(ours)})", lambda k: any(o in k for o in ours)),
+              ("float32 GEMMs", lambda k: _gemm_kind(k) == "f32"),
+              ("bf16 GEMMs", lambda k: _gemm_kind(k) == "other")]
+    for label, pred in groups:
+        hit = [(t, n) for kname, (t, n) in by_name.items() if pred(kname)]
+        t = sum(t for t, _ in hit)
+        print(f"    {label}: {t:.2f} ms over {sum(n for _, n in hit)} launches "
+              f"({t / max(busy, 1e-9):.1%} of device busy)")
+    opt = [e for e in dev if e.correlation_id() in in_opt]
+    t = sum(e.duration_ns() for e in opt) / 1e6
+    print(f"    the optimizer (adamw_update): {len(opt)} launches, {t:.2f} ms "
+          f"({t / max(busy, 1e-9):.1%} of device busy)")
+    return by_name
+
+
+def _scan_counts():
+    """Launch counters of the scans' kernels and calls of their plain
+    versions on the card: name -> (read, reset)."""
+    fns = {"ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_mod.ssd_scan_bwd,
+           "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_mod.rglru_scan_bwd}
+    plain = (ssd_chunked, ssd_mod.ssd_chunked_bwd, ref.ref_rglru_scan,
+             ref.ref_rglru_scan_bwd)
+    out = {k: (lambda f=f: f.launches, lambda f=f: setattr(f, "launches", 0))
+           for k, f in fns.items()}
+    out["plain"] = (lambda: sum(f.cuda_calls for f in plain),
+                    lambda: [setattr(f, "cuda_calls", 0) for f in plain])
+    return out
+
+
+def _plain_gap(what, kernel, plain):
+    """What the first step's (loss, gradient norm) through the kernels
+    and through autograd of the plain scans show amiss at PLAIN_RTOL, for
+    ``main`` to hold after the last phase (None when they agree), and the
+    two relative gaps."""
+    gaps = [abs(k - p) / abs(p) for k, p in zip(kernel, plain)]
+    amiss = None if max(gaps) <= PLAIN_RTOL else (
+        f"{what}: loss {gaps[0]:.2e} and gradient norm {gaps[1]:.2e} apart (relative), "
+        f"over {PLAIN_RTOL:g}")
+    return amiss, gaps
+
+
+def _train_full_width(cfg, ours, hold_bf16=True):
+    """Train ``cfg`` with seeded random weights on a card freed of earlier
+    phases: TRAIN_STEPS steps of ``make_train_step`` at its defaults (peak
+    lr 3e-4, warmup 100) with total_steps TRAIN_STEPS, B 1, S TRAIN_SEQ from
+    ``TokenStream``. Checks: the mean of the last 3 losses below the mean of
+    the first 3 (tests/test_training.py:14); every leaf's gradient finite
+    and non-zero at every step. Compares the first step's loss and gradient
+    norm with those through autograd of the plain scans on the same weights
+    and batch; with ``hold_bf16`` the comparison is held to PLAIN_RTOL by
+    ``main`` after the last phase, so that every phase runs and prints
+    whatever it finds. Prints peak memory, step wall, tokens/s and 6 N T
+    over the step as a share of 989 TFLOP/s, and a profile of one step.
+    Returns the scans' launches over the steps, the trace's {kernel: (ms,
+    launches)}, what the held comparison found amiss (None when it agrees
+    or is not held), and the first step's (loss, gradient norm) through the
+    kernels and through the plain scans."""
+    _free_card(f"training {cfg.name}")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, vocab={cfg.vocab_size}, "
+          f"{cfg.dtype}, {n_params:,} params ({_nbytes(params) / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; B=1 S={TRAIN_SEQ}; {_smi()}")
+    stream = TokenStream(cfg.vocab_size, seed=0).batches(1, TRAIN_SEQ)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+    first = {k: torch.as_tensor(v).to(DEV) for k, v in batches[0].items()}
+    with _PlainScans():
+        loss, grads = loss_and_grads(model, params, first)
+        plain_loss, plain_gnorm = float(loss), float(global_norm(grads))
+    del loss, grads
+    counts = _scan_counts()
+    opt = adamw_init(params)
+    step = make_train_step(model, total_steps=TRAIN_STEPS, device=DEV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _, reset in counts.values():
+        reset()
+    losses, gnorms, walls = [], [], []
+    with _GradWitness() as witness:
+        for i, batch in enumerate(batches[:TRAIN_STEPS]):
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            walls.append(time.perf_counter() - t0)
+            print(f"  step {i:2d}: loss {losses[-1]:.4f} gnorm {gnorms[-1]:.4f} lr "
+                  f"{met['lr']:.2e} wall {walls[-1]:.3f} s")
+    seen = {k: get() for k, (get, _) in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.mean(walls[2:])
+    mfu = 6 * n_params * TRAIN_SEQ / wall / PEAK_FLOPS[torch.bfloat16]
+    print(f"  peak memory {peak / 1e9:.2f} GB, step wall {wall:.3f} s (mean of steps "
+          f"2-{TRAIN_STEPS - 1}), {TRAIN_SEQ / wall:.0f} tokens/s, 6 N T over the step "
+          f"{mfu:.4f} of 989 TFLOP/s bf16; launches over the {TRAIN_STEPS} steps: "
+          + ", ".join(f"{k} {v}" for k, v in seen.items()))
+    bad = witness.bad_leaves()
+    first3, last3 = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    print(f"  checks: mean loss of the last 3 steps {last3:.4f} vs the first 3 {first3:.4f}; "
+          f"{len(tree_leaves(params))} leaves x {TRAIN_STEPS} steps of gradients, "
+          f"{len(bad)} non-finite or zero")
+    check(last3 < first3, f"the loss did not fall: {losses}")
+    check(not bad, f"non-finite or all-zero gradients (step, leaf): {bad}")
+    check(seen["plain"] == 0, f"{seen['plain']} plain scan calls on the card in training")
+    first = (losses[0], gnorms[0]), (plain_loss, plain_gnorm)
+    plain, gaps = _plain_gap(cfg.name, *first)
+    held = (f"{'within' if plain is None else 'OVER'} {PLAIN_RTOL:g}, held at the end of "
+            f"the run" if hold_bf16 else "printed; held on the float32 copy below")
+    print(f"  the first step through the kernels and through autograd of the plain scans: "
+          f"loss {losses[0]:.6f} / {plain_loss:.6f}, gradient norm {gnorms[0]:.6f} / "
+          f"{plain_gnorm:.6f}, {gaps[0]:.2e} and {gaps[1]:.2e} apart (relative; {held})")
+    batch = batches[-1]
+    by_name = _train_profile(lambda: step(params, opt, batch), wall * 1e3, ours)
+    del model, params, opt, step
+    return seen, by_name, plain if hold_bf16 else None, first
+
+
+def _float32_first_step(cfg, bf16_first):
+    """The first step's loss and gradient norm through the kernels and
+    through autograd of the plain scans, on a float32 copy of the same
+    seeded weights and the same batch: how far apart the two paths are
+    without the model's bf16 rounding. Prints it, and how far each path's
+    bf16 first step (``bf16_first``, as ``_train_full_width`` returns it)
+    lies from its float32 one. Returns what it finds amiss at PLAIN_RTOL
+    (None when the two paths agree), for ``main`` to hold."""
+    _free_card(f"{cfg.name} in float32")
+    model = Model(dataclasses.replace(cfg, dtype="float32"))
+    params = tree_map(lambda t: t.float(),
+                      Model(cfg).init(torch.Generator(device=DEV).manual_seed(0)))
+    batch = next(TokenStream(cfg.vocab_size, seed=0).batches(1, TRAIN_SEQ))
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
+    out = []
+    for plain in (False, True):
+        with _PlainScans() if plain else contextlib.nullcontext():
+            loss, grads = loss_and_grads(model, params, batch)
+            out.append((float(loss), float(global_norm(grads))))
+        del loss, grads
+    amiss, gaps = _plain_gap(f"{cfg.name} on a float32 copy", *out)
+    (lk, gk), (lp, gp) = out
+    print(f"  the same first step on a float32 copy of the weights: loss {lk:.6f} / {lp:.6f}, "
+          f"gradient norm {gk:.6f} / {gp:.6f}, {gaps[0]:.2e} and {gaps[1]:.2e} apart "
+          f"(relative; {'within' if amiss is None else 'OVER'} {PLAIN_RTOL:g}, held at the "
+          f"end of the run)")
+    for what, (lb, gb), (lf, gf) in zip(("kernels", "plain scans"), bf16_first, out):
+        print(f"  through the {what}, the bf16 first step lies from the float32 one: loss "
+              f"{abs(lb - lf) / abs(lf):.2e}, gradient norm {abs(gb - gf) / abs(gf):.2e} "
+              f"(relative)")
+    del model, params
+    return amiss
+
+
+def phase_train_mamba():
+    """Returns the SSD backward kernel's launches over the steps and the
+    plain-scan comparison's finding on the float32 copy."""
+    phase("25 train mamba2-1.3b at full width")
+    cfg = get_config("mamba2-1.3b")
+    seen, by_name, _, first = _train_full_width(cfg, (SSD_KERNEL, SSD_BWD_KERNEL),
+                                                hold_bf16=False)
+    plain = _float32_first_step(cfg, first)
+    n = cfg.num_layers * TRAIN_STEPS
+    # each layer's scan runs again when its checkpointed unit is recomputed
+    check(seen["ssd_scan"] == 2 * n and seen["ssd_scan_bwd"] == n,
+          f"{TRAIN_STEPS} steps should launch the SSD forward {2 * n} times and its "
+          f"backward {n} times: {seen}")
+    check(_launches(by_name, (SSD_KERNEL,)) == 2 * cfg.num_layers
+          and _launches(by_name, (SSD_BWD_KERNEL,)) == cfg.num_layers,
+          "the profiled step's trace does not show the SSD kernels' launches")
+    return seen["ssd_scan_bwd"], plain
+
+
+def phase_train_hybrid():
+    """Returns the RG-LRU backward kernel's launches over the steps and the
+    plain-scan comparison's finding."""
+    phase(f"26 train recurrentgemma-9b at full width, depth cut to {R_TRAIN_LAYERS} layers")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=R_TRAIN_LAYERS)
+    segs = tfm_segments(cfg)
+    units = segs[0][2]
+    scanned = units * sum(k == "rglru" for k in segs[0][1])
+    unrolled = sum(k == "rglru" for s in segs[1:] for k in s[1])
+    print(f"  depth {R_TRAIN_LAYERS} of 38: {units} checkpointed (rglru, rglru, attn) units "
+          f"and an unrolled {segs[1][1] if len(segs) > 1 else ()}; {scanned + unrolled} "
+          f"RG-LRU layers")
+    seen, by_name, plain, _ = _train_full_width(cfg, (RGLRU_KERNEL, RGLRU_BWD_KERNEL))
+    check(seen["rglru_scan"] == (2 * scanned + unrolled) * TRAIN_STEPS
+          and seen["rglru_scan_bwd"] == (scanned + unrolled) * TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps should launch the RG-LRU forward "
+          f"{(2 * scanned + unrolled) * TRAIN_STEPS} times and its backward "
+          f"{(scanned + unrolled) * TRAIN_STEPS} times: {seen}")
+    check(_launches(by_name, (RGLRU_KERNEL,)) == 2 * scanned + unrolled
+          and _launches(by_name, (RGLRU_BWD_KERNEL,)) == scanned + unrolled,
+          "the profiled step's trace does not show the RG-LRU kernels' launches")
+    return seen["rglru_scan_bwd"], plain
+
+
+def phase_train_qwen():
+    """Returns the plain-scan comparison's finding."""
+    phase("27 train qwen3-4b at full width")
+    seen, _, plain, _ = _train_full_width(get_config("qwen3-4b"), ("none of ours",))
+    check(not any(seen.values()), f"qwen3-4b's training launched scan kernels: {seen}")
+    return plain
+
+
+def _tiny_train_run(cfg, params, device):
+    """TRAIN_STEPS_PARITY steps at the defaults on ``device`` from a copy of
+    ``params``: per step the loss, the gradient norm, the lr, and copies of
+    the gradients before and of the parameters after the step."""
+    model = Model(cfg)
+    params = tree_map(lambda t: t.to(device, copy=True), params)
+    opt = adamw_init(params)
+    step = make_train_step(model, total_steps=TRAIN_STEPS, device=device)
+    stream = TokenStream(cfg.vocab_size, seed=0).batches(PARITY_BATCH, PARITY_SEQ)
+    out = []
+    for _ in range(TRAIN_STEPS_PARITY):
+        batch = next(stream)
+        _, grads = loss_and_grads(model, params,
+                                  {k: torch.as_tensor(v).to(device) for k, v in batch.items()})
+        params, opt, met = step(params, opt, batch)
+        out.append(dict(loss=float(met["loss"]), gnorm=float(met["grad_norm"]), lr=met["lr"],
+                        grads=[g.cpu() for g in grads],
+                        params=[t.to("cpu", copy=True) for t in tree_leaves(params)]))
+    return out
+
+
+def phase_train_parity():
+    """Tiny float32 models, TRAIN_STEPS_PARITY steps at the defaults on the
+    CPU and on the card, with the CPU tests' tolerances: the loss and the
+    gradient norm to 1e-5 relative; the first step's gradients to rtol 1e-4
+    / atol 1e-6 and its parameter steps within 0.1 lr beyond what the
+    gradients' difference moves AdamW's first update; then the largest
+    parameter gap in lr units after each step."""
+    phase("28 CPU vs CUDA training parity (tiny and reduced, float32)")
+    tiny = ModelConfig(name="tiny-dense", family="dense", source="test", num_layers=2,
+                       d_model=64, vocab_size=128, num_heads=4, num_kv_heads=2,
+                       head_dim=16, d_ff=128, dtype="float32", rope_theta=10_000.0)
+    counts = _scan_counts()
+    for cfg in (tiny, get_config("qwen3-moe-30b-a3b").reduced(),
+                get_config("mamba2-1.3b").reduced(), get_config("recurrentgemma-9b").reduced()):
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        for _, reset in counts.values():
+            reset()
+        cpu, card = _tiny_train_run(cfg, params, "cpu"), _tiny_train_run(cfg, params, DEV)
+        seen = {k: get() for k, (get, _) in counts.items()}
+        lr_sum, gaps = 0.0, []
+        for i, (c, g) in enumerate(zip(cpu, card)):
+            check(abs(c["loss"] - g["loss"]) <= 1e-5 * abs(c["loss"]),
+                  f"{cfg.name} step {i}: loss CPU {c['loss']} card {g['loss']}")
+            check(abs(c["gnorm"] - g["gnorm"]) <= 1e-5 * abs(c["gnorm"]),
+                  f"{cfg.name} step {i}: gradient norm CPU {c['gnorm']} card {g['gnorm']}")
+            lr_sum += c["lr"]
+            gaps.append(max(float((a - b).abs().max()) if a.numel() else 0.0
+                            for a, b in zip(c["params"], g["params"])) / lr_sum)
+        c, g = cpu[0], card[0]
+        for k, (gc_, gg, p0, pc, pg) in enumerate(zip(c["grads"], g["grads"],
+                                                      tree_leaves(params),
+                                                      c["params"], g["params"])):
+            if not gc_.numel():
+                continue
+            check(torch.allclose(gg, gc_, rtol=1e-4, atol=1e-6),
+                  f"{cfg.name}: gradient {k} of the first step")
+            gap = ((pg - p0) - (pc - p0)).abs().double()
+            check(bool((gap <= 0.1 * c["lr"]).all()),
+                  f"{cfg.name}: the first step of parameter {k}, "
+                  f"{float(gap.max()) / c['lr']:.4f} lr from the CPU's")
+        check(seen["plain"] == 0, f"{cfg.name}: a plain scan ran on the card")
+        scans = sum(v for k, v in seen.items() if k != "plain")
+        check(scans > 0 or not (cfg.ssm_state or cfg.block_pattern),
+              f"{cfg.name}: no scan kernel launched on the card")
+        print(f"  {cfg.name}: {TRAIN_STEPS_PARITY} steps, losses CPU "
+              f"{[round(x['loss'], 7) for x in cpu]} card {[round(x['loss'], 7) for x in card]}; "
+              f"largest parameter gap after each step {', '.join(f'{x:.3e}' for x in gaps)} "
+              f"lr (of the lr summed so far); card launches "
+              + ", ".join(f"{k} {v}" for k, v in seen.items()))
+
+
+def phase_train_cli():
+    phase("29 the training CLI on the card, its checkpoint restored on the card")
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck")
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device",
+                              "cuda", "--arch", "mamba2-1.3b", "--steps", "3", "--save", path],
+                             capture_output=True, text=True, timeout=CLI_TIMEOUT, cwd=root,
+                             env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        for line in out.stdout.splitlines():
+            print(f"  cli> {line}")
+        check(out.returncode == 0, f"the train CLI failed: {out.stderr[-2000:]}")
+        losses = [float(ln.split()[3]) for ln in out.stdout.splitlines()
+                  if ln.startswith("step")]
+        check(len(losses) == 2 and all(np.isfinite(losses)), f"the CLI's losses {losses}")
+        check(out.stdout.splitlines()[-1] == f"saved checkpoint to {path}.npz",
+              "the train CLI did not save")
+        like = Model(get_config("mamba2-1.3b").reduced()).init(
+            torch.Generator(device=DEV).manual_seed(1))
+        got, step_n = restore_checkpoint(path, like)
+        with np.load(path + ".npz") as data:
+            for i, t in enumerate(tree_leaves(got)):
+                check(t.device.type == "cuda" and np.array_equal(
+                    t.cpu().numpy(), data[f"leaf_{i}"]), f"restored leaf {i} differs")
+        check(step_n == 3, f"restored step {step_n}")
+        print(f"  the CLI's checkpoint restored on the card: {len(tree_leaves(got))} leaves "
+              f"equal to the file, step {step_n}")
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -2249,6 +2854,14 @@ def main():
     phase_replicas(model, params)
     del model, params
     phase_front_door(engine_loop)
+    t_train = time.perf_counter()
+    rows += phase_backward_kernels(gen)
+    launches["ssd_scan_bwd"], plain_mamba = phase_train_mamba()
+    launches["rglru_scan_bwd"], plain_hybrid = phase_train_hybrid()
+    plain_qwen = phase_train_qwen()
+    phase_train_parity()
+    phase_train_cli()
+    print(f"phases 24-29: {time.perf_counter() - t_train:.1f} s wall")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}
@@ -2257,6 +2870,9 @@ def main():
     for r in first.values():
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in first.values()]}))
+    amiss = [x for x in (plain_mamba, plain_hybrid, plain_qwen) if x]
+    check(not amiss, "the first training step through the kernels and through autograd "
+          "of the plain scans disagree: " + "; ".join(amiss))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -5,7 +5,8 @@ scores in the input dtype then float32, a ``NEG_INF = -1e30`` mask (not
 -inf), float32 softmax, and probabilities cast back to ``q.dtype`` before
 the PV product. The SSD scan: the token-by-token recurrence, the oracle of
 the chunked version in ``repro_torch/kernels/ssd_scan.py``. The RG-LRU
-scan: the token-by-token linear recurrence.
+scan: the token-by-token linear recurrence, and its adjoint walked back
+token by token (the plain backward).
 
 ``cuda_calls`` on each function counts calls with CUDA tensors. The serving
 path never makes one (a CUDA tensor goes to the kernel), so a run can check
@@ -103,6 +104,28 @@ def ref_rglru_scan(a, b):
 
 
 ref_rglru_scan.cuda_calls = 0
+
+
+def ref_rglru_scan_bwd(a, h, g):
+    """Adjoint of ``ref_rglru_scan``: a (B,S,W), the forward's h (B,S,W)
+    and g = dL/dh (B,S,W) -> (da, db), walking time backwards:
+    lam_{S-1} = g_{S-1}, lam_t = g_t + a_{t+1} lam_{t+1}; db_t = lam_t and
+    da_t = lam_t h_{t-1}, with h_{-1} = 0. In float32, or in float64 from
+    float64 a (the gradient checks run there)."""
+    if a.is_cuda:
+        ref_rglru_scan_bwd.cuda_calls += 1
+    dt = torch.float64 if a.dtype == torch.float64 else torch.float32
+    a, h, g = a.to(dt), h.to(dt), g.to(dt)
+    lam = torch.zeros_like(g[:, 0])
+    da, db = [], []
+    for t in reversed(range(a.shape[1])):
+        lam = g[:, t] + (a[:, t + 1] * lam if t + 1 < a.shape[1] else 0.0)
+        db.append(lam)
+        da.append(lam * h[:, t - 1] if t > 0 else torch.zeros_like(lam))
+    return torch.stack(da[::-1], dim=1), torch.stack(db[::-1], dim=1)
+
+
+ref_rglru_scan_bwd.cuda_calls = 0
 
 
 def ref_ssd_sequential(x, dt_a, b_mat, c_mat, initial_state=None):

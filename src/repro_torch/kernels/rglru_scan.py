@@ -8,6 +8,12 @@ shared-memory slabs, so a and b are read from device memory once.
 ``rglru_plan`` picks the slabs and the ring. Its plain version is
 ``ref.ref_rglru_scan``, the token-by-token recurrence: a CPU tensor goes
 there, a CUDA tensor goes to the kernel or the call raises.
+
+The backward (``csrc/rglru_scan_bwd.cu``, port-only: the JAX package
+differentiates its XLA associative scan, ``repro/models/rglru.py:66``)
+walks the same ring last slab first; ``rglru_bwd_plan`` lays it out and
+``ref.ref_rglru_scan_bwd`` is its plain version, chosen by device in the
+same way. ``RglruScanFn`` joins the two for autograd.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_rglru_scan
+from repro_torch.kernels.ref import ref_rglru_scan, ref_rglru_scan_bwd
 
 CHANNELS = 32            # channels a CTA owns: one per lane
 WARPS = 16               # sub-chunks of a slab, one per warp: 512 threads a CTA
@@ -29,6 +35,8 @@ ROW_ALIGN = 16           # bytes: the kernel copies rows 16 bytes at a time
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _EMPTY_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+BWD_ROWS = 128           # steps of a backward slab: a, g and h, 48 KB in float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +48,17 @@ class RglruPlan:
     smem: int            # dynamic shared memory, bytes
 
 
+def _item(w: int, dtype) -> int:
+    """a's element size; raises ValueError unless a row of W of them is a
+    whole number of the kernels' 16-byte copies."""
+    item = 4 if dtype == torch.float32 else 2
+    if w * item % ROW_ALIGN:
+        raise ValueError(f"the kernel copies rows 16 bytes at a time: W * "
+                         f"{item} bytes must be a multiple of {ROW_ALIGN} "
+                         f"(W a multiple of {ROW_ALIGN // item}); got W={w}")
+    return item
+
+
 def rglru_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
     """The launch of the scan over a, b (B,S,W) of ``dtype`` (float32 or
     bfloat16): a CTA per 32 channels of a batch row (128 at W 4096, one
@@ -48,11 +67,7 @@ def rglru_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
     longer S streams through a ring of STAGES slabs, the next one in flight
     while one is scanned. Raises ValueError where the kernel's 16-byte
     copies would not fit the rows (W * itemsize not a multiple of 16)."""
-    item = 4 if dtype == torch.float32 else 2
-    if w * item % ROW_ALIGN:
-        raise ValueError(f"the kernel copies rows 16 bytes at a time: W * "
-                         f"{item} bytes must be a multiple of {ROW_ALIGN} "
-                         f"(W a multiple of {ROW_ALIGN // item}); got W={w}")
+    item = _item(w, dtype)
     max_rows = SLAB_BYTES // (2 * CHANNELS * item)
     if s <= max_rows:
         rows, stages = -(-s // WARPS) * WARPS, 1
@@ -60,6 +75,20 @@ def rglru_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
         rows, stages = max_rows, STAGES
     return RglruPlan(grid=(-(-w // CHANNELS), b), rows=rows, slabs=-(-s // rows),
                      stages=stages, smem=stages * 2 * rows * CHANNELS * item)
+
+
+def rglru_bwd_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
+    """The backward's launch over a (B,S,W) of ``dtype`` with float32 h and
+    g: the forward's grid, slabs of BWD_ROWS steps of a, g and h (one slab
+    rounded up to WARPS steps when S fits), two stages past one slab.
+    Raises ValueError where the 16-byte copies would not fit the rows."""
+    item = _item(w, dtype)
+    if s <= BWD_ROWS:
+        rows, stages = -(-s // WARPS) * WARPS, 1
+    else:
+        rows, stages = BWD_ROWS, STAGES
+    return RglruPlan(grid=(-(-w // CHANNELS), b), rows=rows, slabs=-(-s // rows),
+                     stages=stages, smem=stages * rows * CHANNELS * (item + 8))
 
 
 def _check(a, b):
@@ -110,6 +139,60 @@ def rglru_scan(a, b):
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, g):
+    """The adjoint of ``rglru_scan``: a (B,S,W), its output h (B,S,W)
+    float32 and g = dL/dh -> (da, db) in a's dtype.
+
+    CPU tensors run the plain backward. CUDA tensors launch the backward
+    kernel on contiguous, 16-byte aligned operands (h and g float32), with
+    ``rglru_bwd_plan``'s slabs."""
+    if a.device.type == "cpu":
+        da, db = ref_rglru_scan_bwd(a, h, g)
+        return da.to(a.dtype), db.to(a.dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no RG-LRU scan backward for device {a.device}")
+    fn = build.kernel_fn("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGTYPES)
+    _check(a, a)
+    if h.shape != a.shape or g.shape != a.shape or h.device != a.device \
+            or g.device != a.device:
+        raise ValueError(f"h and g must match a {tuple(a.shape)} on {a.device}")
+    bsz, s, w = a.shape
+    plan = rglru_bwd_plan(bsz, s, w, a.dtype)
+    a = _aligned(a)
+    h, g = _aligned(h.float()), _aligned(g.float())
+    da = torch.empty((bsz, s, w), dtype=a.dtype, device=a.device)
+    db = torch.empty_like(da)
+    err = fn(a.data_ptr(), h.data_ptr(), g.data_ptr(), da.data_ptr(), db.data_ptr(),
+             bsz, s, w, plan.rows, plan.stages, plan.smem,
+             int(a.dtype == torch.bfloat16),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, "rglru_scan_bwd")
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
+rglru_scan_bwd.launches = 0
+
+
+class RglruScanFn(torch.autograd.Function):
+    """``rglru_scan`` with its gradient: the forward saves a and h, the
+    backward runs ``rglru_scan_bwd``, each on the kernel or the plain
+    version by device."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.b_dtype = b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        da, db = rglru_scan_bwd(a, h, g)
+        return da, db.to(ctx.b_dtype)
 
 
 def empty_launch(b: int, w: int, plan: RglruPlan, device) -> None:

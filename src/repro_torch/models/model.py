@@ -2,14 +2,16 @@
 decode path and its caches.
 
 Ported from ``repro/models/model.py``: ``init``, ``_embed``, ``_logits``,
-``prefill``, ``decode_step``, and ``make_cache`` / ``pad_cache`` /
-``cache_bytes`` for "attn" and "moe" (the ring of ``attn_cache_len``
-slots), "ssm" and "rglru" layers. The serving engine runs attention stacks
+``forward_train``, ``prefill``, ``decode_step``, and ``make_cache`` /
+``pad_cache`` / ``cache_bytes`` for "attn" and "moe" (the ring of
+``attn_cache_len`` slots), "ssm" and "rglru" layers. The serving engine runs attention stacks
 (dense and MoE) through ``TorchPagedRunner`` and state stacks (SSM and the
 hybrid RG-LRU family) through ``StateRunner``, which calls
 ``decode_step``. The multimodal configs carry ``mm_proj``: ``prefill``
 writes the projected conditioning embeddings over the leading token
-embeddings, as the JAX model does. Not ported yet: ``forward_train``.
+embeddings, as the JAX model does. ``forward_train`` is the training
+forward (``repro_torch.training``): the stack under checkpointing, every
+position's logits.
 """
 from __future__ import annotations
 
@@ -87,6 +89,14 @@ class Model:
                                  device=device)
 
     # ------------------------------------------------------------- modes
+    def forward_train(self, params, tokens, mm_embeds=None, positions=None):
+        """tokens (B,S) -> logits (B,S,V)."""
+        b, s = tokens.shape
+        rope = self._rope(self._positions(b, s, positions, device=tokens.device))
+        h = self._embed(params, tokens, mm_embeds)
+        h, _ = tfm.stack_context(params["layers"], self.cfg, h, rope, train=True)
+        return self._logits(params, h)
+
     def prefill(self, params, tokens, mm_embeds=None, seq_lens=None, positions=None):
         """tokens (B,S) -> (last_logits (B,V), cache). ``mm_embeds``
         (Bm,L,mm_embed_dim) of a multimodal config replace the embeddings of

@@ -16,6 +16,7 @@ experts (``repro_torch/models/moe.py``) in place of the SwiGLU MLP.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -161,10 +162,50 @@ def stack_layers(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def stack_context(params_segs, cfg, x, rope, *, seq_lens=None,
+def _unbind_layers(p, n):
+    """The n layers of a stacked parameter dict, each leaf split once by
+    ``torch.unbind``: its backward stacks the n layers' gradients once,
+    where ``a[i]`` for each layer would add a zero tensor the size of the
+    whole stack per layer."""
+    if isinstance(p, dict):
+        parts = {k: _unbind_layers(v, n) for k, v in p.items()}
+        return [{k: parts[k][i] for k in p} for i in range(n)]
+    return p.unbind(0)
+
+
+def _unit(unit, layer_ps, cfg, x, rope):
+    for kind, p_k in zip(unit, layer_ps):
+        x, _ = block_context(kind, p_k, cfg, x, rope)
+    return x
+
+
+def _stack_train(params_segs, cfg, x, rope):
+    """The training walk: each unit of a scan segment under
+    ``torch.utils.checkpoint`` (non-reentrant), as JAX checkpoints its scan
+    body, so the backward recomputes the unit from its input; the unrolled
+    remainder as it is, as in JAX. The stacked leaves are split once a
+    segment, outside the checkpointed units."""
+    for (stype, unit, n), seg_p in zip(segments(cfg), params_segs):
+        if stype == "unroll":
+            x = _unit(unit, seg_p, cfg, x, rope)
+            continue
+        layers = [_unbind_layers(p_k, n) for p_k in seg_p]
+        for i in range(n):
+            x = checkpoint(_unit, unit, [lay[i] for lay in layers], cfg, x, rope,
+                           use_reentrant=False)
+    return x
+
+
+def stack_context(params_segs, cfg, x, rope, *, train=False, seq_lens=None,
                   return_cache=False):
     """Apply all layers in context mode. Returns (x, caches or None); scan
-    segments stack their layers' caches on a leading axis."""
+    segments stack their layers' caches on a leading axis. ``train=True``
+    is ``Model.forward_train``'s walk (``_stack_train``): no padding mask
+    and no caches."""
+    if train:
+        if seq_lens is not None or return_cache:
+            raise ValueError("the training walk takes no seq_lens and returns no cache")
+        return _stack_train(params_segs, cfg, x, rope), None
     caches = []
     for (stype, unit, n), seg_p in zip(segments(cfg), params_segs):
         outs = [[] for _ in unit]

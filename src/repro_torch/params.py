@@ -30,6 +30,24 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves``
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def _leaf_from_numpy(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":

@@ -38,8 +38,9 @@ from repro_torch.models.common import resolve_device
 logger = logging.getLogger(__name__)
 
 # modest payloads: enough spread for a 2-term lstsq, small enough that
-# startup stays sub-second even over a slow link
-DEFAULT_SIZES = (1 << 18, 1 << 20, 1 << 22)      # 256 KiB, 1 MiB, 4 MiB
+# startup stays sub-second even over a slow link; the largest one's byte
+# term (about 2 ms at 10 GB/s) outweighs a small copy's stray millisecond
+DEFAULT_SIZES = (1 << 18, 1 << 20, 1 << 22, 1 << 24)   # 256 KiB .. 16 MiB
 
 
 @dataclass
@@ -80,23 +81,32 @@ def _upload(buf: np.ndarray, dev: torch.device) -> torch.Tensor:
     return out
 
 
-def measure_link(sizes=DEFAULT_SIZES, repeats: int = 3,
+def measure_link(sizes=DEFAULT_SIZES, repeats: int = 5,
                  device="cuda") -> List[Tuple[int, float]]:
     """Time pageable host→device and device→host copies on ``device`` (a
-    CUDA device). Returns ``(n_bytes, seconds)`` samples, both directions
-    pooled: the fit recovers one effective link rate."""
+    CUDA device). Returns ``(n_bytes, seconds)`` samples, a host→device and
+    a device→host one a size, both directions pooled: the fit recovers one
+    effective link rate. Each sample is the fastest of ``repeats`` copies:
+    on a shared host the noise is one-sided (a preempted thread, the
+    caching allocator growing a segment), and a lstsq over raw timings can
+    fit a byte rate of about zero when a small copy stalls."""
     dev = resolve_device(device)
     samples: List[Tuple[int, float]] = []
     for n in sizes:
         buf = np.zeros(n, dtype=np.uint8)
-        _upload(buf, dev).cpu()        # one unmeasured round trip: allocator warm-up
+        # two unmeasured round trips held at once: the loop below holds one
+        # copy while it makes the next, so the allocator must cache two blocks
+        for warm in [_upload(buf, dev), _upload(buf, dev)]:
+            warm.cpu()
+        up, down = [], []
         for _ in range(repeats):
             t0 = time.perf_counter()
             on_card = _upload(buf, dev)
-            samples.append((n, time.perf_counter() - t0))
+            up.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
             on_card.cpu()              # a pageable copy returns when it landed
-            samples.append((n, time.perf_counter() - t0))
+            down.append(time.perf_counter() - t0)
+        samples += [(n, min(up)), (n, min(down))]
     return samples
 
 
@@ -132,7 +142,7 @@ def measure_overlap(tm, sizes=DEFAULT_SIZES, repeats: int = 2,
     return samples
 
 
-def calibrate_link(tm, *, sizes=DEFAULT_SIZES, repeats: int = 3,
+def calibrate_link(tm, *, sizes=DEFAULT_SIZES, repeats: int = 5,
                    overlap: bool = True, device="cuda") -> LinkCalibration:
     """Measure the real link of ``device`` and refit ``tm``'s swap terms in
     place.
@@ -153,11 +163,11 @@ def calibrate_link(tm, *, sizes=DEFAULT_SIZES, repeats: int = 3,
     dev = resolve_device(device)
     if dev.type == "cpu":
         return _skip("no host↔device link on the CPU", "cpu")
-    backend = torch.cuda.get_device_name(dev)
-    samples = measure_link(sizes, repeats, dev)
-    if len(samples) < 2:
+    if not sizes or repeats < 1:
         raise ValueError(f"calibrate_link needs at least one size and one "
                          f"repeat, got sizes={sizes!r} repeats={repeats}")
+    backend = torch.cuda.get_device_name(dev)
+    samples = measure_link(sizes, repeats, dev)
     tm.fit_swap(samples)
     # a fitted rate implying > ~1 PB/s is float noise from size-blind
     # timings: nothing real was measured, keep the nominal link pricing

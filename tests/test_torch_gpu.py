@@ -580,13 +580,16 @@ def test_calibrate_link_applies_on_card(cuda):
     """The link calibration measures the card's pageable copies and fits."""
     from repro_torch.core import TimeModel
     from repro_torch.rt import calibrate_link
+    from repro_torch.rt.calibrate import DEFAULT_SIZES
     tm = TimeModel.h100()
     cal = calibrate_link(tm, device=cuda)
     assert cal.applied and cal.error is None
     assert cal.backend == torch.cuda.get_device_name(cuda)
     assert tm.swap_byte == cal.swap_byte > 0.0
     assert 0.5 < cal.bandwidth_gbs < 100.0
-    assert len(cal.samples) == 18 and len(cal.overlap_samples) == 6
+    # the fastest copy of each size up and down; two overlapped uploads a size
+    assert [n for n, _ in cal.samples] == [n for n in DEFAULT_SIZES for _ in range(2)]
+    assert len(cal.overlap_samples) == 2 * len(DEFAULT_SIZES)
 
 
 def test_front_door_tokens_on_card_equal_cpu(cuda):
@@ -629,3 +632,111 @@ def test_front_door_tokens_on_card_equal_cpu(cuda):
     assert all(status == "finished" for status, _, _ in got)
     assert paged_attention_splitk.launches > launches[0]
     assert chunked_prefill_attention.launches > launches[1]
+
+
+# ------------------------------------------------------------ training
+# (b, s, w, dtype): recurrentgemma's training shape (S 4096, W 4096), a
+# partial last slab (S 4000), short S, a ragged last channel tile, and a
+# from bf16 (the kernel writes da and db in a's type)
+RGLRU_BWD_CASES = [(1, 4096, 4096, torch.float32), (1, 4000, 4096, torch.float32),
+                   (2, 300, 4096, torch.float32), (1, 37, 4096, torch.float32),
+                   (1, 300, 4104, torch.float32), (1, 300, 4096, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=str)
+def test_rglru_backward_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import rglru_scan as rglru_mod
+    b, s, w, dtype = case
+    rng = np.random.default_rng(s + w + b)
+    a, bb = rglru_inputs(rng, b, s, w, dtype, cuda, True)
+    h = rglru_scan(a, bb)
+    g = _randn(rng, (b, s, w), torch.float32, cuda)
+    launches = rglru_mod.rglru_scan_bwd.launches
+    got = rglru_mod.rglru_scan_bwd(a, h, g)
+    want = ref.ref_rglru_scan_bwd(a, h, g)
+    torch.cuda.synchronize()
+    assert rglru_mod.rglru_scan_bwd.launches == launches + 1
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == dtype and torch.isfinite(x).all()
+        _assert_rel_close(x, y, dtype)
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["decay", "slow-decay"])
+@pytest.mark.parametrize("pad", [0, 11], ids=["whole", "padded"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, case, pad, slow):
+    """The four gradients of the SSD backward kernel against its plain
+    backward from a zero state; "padded": the last 11 steps as the model
+    pads a sequence (dt 0, zero x, B, C, and no cotangent)."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    rng = np.random.default_rng(case[1] + case[3] + pad + slow)
+    x, dta, bm, cm, _ = ssd_inputs(rng, case, cuda, slow)
+    s, chunk = case[1], case[-1]
+    for t in (x, dta, bm, cm):
+        t[:, s - pad:] = 0.0
+    y, final, states = ssd_scan(x, dta, bm, cm, chunk=chunk, return_all_states=True)
+    dy, dfinal = torch.randn_like(y), torch.randn_like(final)
+    dy[:, s - pad:] = 0.0
+    launches = ssd_mod.ssd_scan_bwd.launches
+    got = ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+    want = ssd_mod.ssd_chunked_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan_bwd.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+        rel = torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)
+        assert rel < 1e-5, f"relative error {float(rel):.3e}"
+
+
+def test_scan_functions_on_card_match_autograd_of_plain(cuda):
+    """With a gradient wanted, ``ops`` runs each scan's Function (kernel
+    forward and backward) on the card: the gradients equal
+    ``torch.autograd.grad`` of the plain forward on the same inputs."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(11)
+    a, bb = rglru_inputs(rng, 2, 300, 4096, torch.float32, cuda, True)
+    a.requires_grad_()
+    bb.requires_grad_()
+    g = torch.randn_like(a)
+    got = torch.autograd.grad(ops.rglru_scan(a, bb), (a, bb), g)
+    want = torch.autograd.grad(ref.ref_rglru_scan(a, bb), (a, bb), g)
+    for x, y in zip(got, want):
+        _assert_rel_close(x, y, torch.float32)
+    x, dta, bm, cm, _ = ssd_inputs(rng, (1, 256, 8, 64, 128, 64), cuda)
+    ins = [t.requires_grad_() for t in (x, dta, bm, cm)]
+    y, final = ops.ssd_scan(*ins, chunk=64)
+    dy, dfinal = torch.randn_like(y), torch.randn_like(final)
+    got = torch.autograd.grad((y, final), ins, (dy, dfinal))
+    y, final = ssd_chunked(*ins, 64)
+    want = torch.autograd.grad((y, final), ins, (dy, dfinal))
+    for x, y in zip(got, want):
+        _assert_rel_close(x, y, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """The loss and gradients of one training step of the reduced float32
+    config: the loss to 1e-5 relative, every gradient to rtol 1e-4 / atol
+    1e-6, with the scans' backward kernels launched on the card."""
+    from repro_torch.kernels import rglru_scan as rglru_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = next(TokenStream(cfg.vocab_size, seed=0).batches(2, 32))
+    kernels = (ssd_mod.ssd_scan_bwd, rglru_mod.rglru_scan_bwd)
+    before = [k.launches for k in kernels]
+    out = {}
+    for dev, p in (("cpu", params), (cuda, tree_map(lambda t: t.to(cuda), params))):
+        out[str(dev)] = loss_and_grads(
+            model, p, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+    (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+    assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
+    for gc, gg in zip(grads_c, grads_g):
+        torch.testing.assert_close(gg.cpu(), gc, rtol=1e-4, atol=1e-6)
+    assert sum(k.launches for k in kernels) > sum(before)

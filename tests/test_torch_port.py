@@ -114,6 +114,8 @@ def no_plain(monkeypatch):
     monkeypatch.setattr(cp_mod, "ref_chunked_prefill_attention", trip)
     monkeypatch.setattr(ssd_mod, "ssd_chunked", trip)
     monkeypatch.setattr(rglru_mod, "ref_rglru_scan", trip)
+    monkeypatch.setattr(ssd_mod, "ssd_chunked_bwd", trip)
+    monkeypatch.setattr(rglru_mod, "ref_rglru_scan_bwd", trip)
     return calls
 
 
@@ -154,6 +156,44 @@ def test_cuda_tensor_without_kernel_raises(fake_cuda, no_plain, no_toolchain):
         a = torch.empty((1, s, 64), device="cuda")
         with pytest.raises(RuntimeError, match="nvcc"):
             ops.rglru_scan(a, a)
+    assert no_plain == []
+
+
+def test_cuda_tensor_with_grad_reaches_the_backward_kernels(fake_cuda, no_plain,
+                                                           no_toolchain, monkeypatch):
+    """(c) With a gradient wanted, CUDA tensors go through the scans'
+    Functions: their forwards to the forward kernels, their backwards to
+    the backward kernels, never to a plain version. The Functions' forward
+    and backward are called as autograd calls them (``apply`` on a CUDA
+    tensor, and the engine, would reach for a card)."""
+    import types
+    entered = []
+
+    def direct(fn):
+        def apply(*args):
+            entered.append(fn.__name__)
+            ctx = types.SimpleNamespace(save_for_backward=lambda *t: None)
+            return fn.forward(ctx, *args)
+        return apply
+    monkeypatch.setattr(ssd_mod.SsdScanFn, "apply", direct(ssd_mod.SsdScanFn))
+    monkeypatch.setattr(rglru_mod.RglruScanFn, "apply", direct(rglru_mod.RglruScanFn))
+    x = torch.empty((1, 64, 4, 16), device="cuda", requires_grad=True)
+    dta = torch.empty((1, 64, 4), device="cuda")
+    bm = torch.empty((1, 64, 8), device="cuda")
+    a = torch.empty((1, 37, 64), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.ssd_scan(x, dta, bm, bm, chunk=16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.rglru_scan(a, a)
+    assert entered == ["SsdScanFn", "RglruScanFn"]
+    states = torch.empty((1, 4, 4, 16, 8), device="cuda")
+    ctx = types.SimpleNamespace(saved_tensors=(x.detach(), dta, bm, bm, states), chunk=16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ssd_mod.SsdScanFn.backward(ctx, torch.empty_like(x),
+                                   torch.empty((1, 4, 16, 8), device="cuda"))
+    ctx = types.SimpleNamespace(saved_tensors=(a.detach(), a.detach()), b_dtype=a.dtype)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rglru_mod.RglruScanFn.backward(ctx, torch.empty_like(a))
     assert no_plain == []
 
 
@@ -210,7 +250,8 @@ def test_non_cpu_non_cuda_device_raises():
 
 def test_port_module_list_covers_the_state_path():
     """The import-hygiene tests walk every module of the port, the state,
-    hybrid and MoE paths', the simulator and every config included."""
+    hybrid and MoE paths', the simulator, every config and the training
+    path's included."""
     names = _module_names()
     for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
                 "repro_torch.models.state_cache",
@@ -220,7 +261,10 @@ def test_port_module_list_covers_the_state_path():
                 "repro_torch.core.simulator", "repro_torch.models.moe",
                 "repro_torch.configs.yi_9b", "repro_torch.configs.codeqwen1_5_7b",
                 "repro_torch.configs.granite_34b",
-                "repro_torch.configs.qwen3_moe_30b_a3b"):
+                "repro_torch.configs.qwen3_moe_30b_a3b",
+                "repro_torch.training.optimizer", "repro_torch.training.train_step",
+                "repro_torch.training.data", "repro_torch.training.checkpoint",
+                "repro_torch.launch.train"):
         assert mod in names
 
 

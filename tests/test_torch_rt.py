@@ -380,6 +380,67 @@ def test_calibrate_link_degenerate_fit_restores_presets(fake_card, port):
     assert (tm.swap_byte, tm.swap_floor, tm.swap_launch) == before
 
 
+class _FakeLink:
+    """A card's pageable copies on a scripted clock: 2e-10 s a byte plus a
+    50 us floor each way (5 GB/s), and the first timed upload of each size
+    (its third, after the two warm-ups) stalled by 2 ms, as a preempted
+    host thread stalls it."""
+    BYTE, FLOOR, STALL = 2e-10, 5e-5, 2e-3
+
+    def __init__(self):
+        self.now, self.uploads = 0.0, {}
+
+    def clock(self):
+        return self.now
+
+    def upload(self, buf, dev):
+        n = buf.nbytes
+        k = self.uploads[n] = self.uploads.get(n, 0) + 1
+        self.now += self.BYTE * n + self.FLOOR + (self.STALL if k == 3 else 0.0)
+        link = self
+
+        class OnCard:
+            def cpu(self):
+                link.now += link.BYTE * n + link.FLOOR
+        return OnCard()
+
+
+@pytest.fixture
+def fake_link(fake_card):
+    link = _FakeLink()
+    fake_card.setattr(tcalibrate, "_upload", link.upload)
+    fake_card.setattr(tcalibrate, "time", type("T", (), {"perf_counter": link.clock}))
+    return link
+
+
+def test_measure_link_keeps_each_sizes_fastest_copy(fake_link):
+    """One sample a size and direction, the fastest of the repeats: the
+    stalled upload of each size does not reach the fit."""
+    samples = tcalibrate.measure_link(repeats=3)
+    want = [(n, _FakeLink.BYTE * n + _FakeLink.FLOOR)
+            for n in tcalibrate.DEFAULT_SIZES for _ in range(2)]
+    assert [n for n, _ in samples] == [n for n, _ in want]
+    assert [t for _, t in samples] == pytest.approx([t for _, t in want], rel=1e-9)
+    assert all(k == 2 + 3 for k in fake_link.uploads.values())
+
+
+def test_calibrate_link_fits_the_link_through_stalls(fake_link, port):
+    tm = port.core.TimeModel.h100()
+    cal = calibrate_link(tm, overlap=False)
+    assert cal.applied and cal.bandwidth_gbs == pytest.approx(5.0, rel=1e-6)
+    assert tm.swap_floor == pytest.approx(_FakeLink.FLOOR, rel=1e-6)
+
+
+@pytest.mark.parametrize("sizes,repeats", [((), 5), (tcalibrate.DEFAULT_SIZES, 0)])
+def test_calibrate_link_without_samples_raises(fake_link, port, sizes, repeats):
+    tm = port.core.TimeModel.h100()
+    before = (tm.swap_byte, tm.swap_floor, tm.swap_launch)
+    with pytest.raises(ValueError, match="at least one size and one repeat"):
+        calibrate_link(tm, sizes=sizes, repeats=repeats)
+    assert not fake_link.uploads
+    assert (tm.swap_byte, tm.swap_floor, tm.swap_launch) == before
+
+
 def test_calibrate_link_on_cpu_keeps_presets(port):
     tm = port.core.TimeModel.h100()
     before = (tm.swap_byte, tm.swap_floor, tm.swap_launch)
