@@ -131,20 +131,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
  24. the two scans' backward kernels (port-only: the JAX package
      differentiates its XLA scans) against their plain backwards in
      float32, to 1e-5 of the largest plain value and in relative norm,
-     each free of spills: RG-LRU at recurrentgemma's training shape (B 1,
-     W 4096, S 4096), S 4000, 300 and 37, W 4104 and a misaligned view;
-     SSD at mamba2's (B 1, H 64, P 64, N 128, chunk 64, S 4096), at S 4032
-     whose last 32 steps are the model's padding, and on the cases of
-     tests/test_kernels.py, normal and slow decay; then each one's time at
-     S 4096 beside its bound (the SSD's also beside its 3xTF32 tensor-core
-     bound) and its plain backward's;
+     each of their kernels free of spills (the SSD backward's three: the dH
+     walk, the chunk terms, the head groups' sum; its two product kernels
+     with tensor-core HMMA instructions in ``cuobjdump -sass``): RG-LRU at
+     recurrentgemma's training shape (B 1, W 4096, S 4096), S 4000, 300 and
+     37, W 4104 and a misaligned view; SSD at mamba2's (B 1, H 64, P 64, N
+     128, chunk 64, S 4096), at S 4032 whose last 32 steps are the model's
+     padding, at B 2, at chunk 32, at 12 heads (a short last head group)
+     and on the cases of tests/test_kernels.py, normal and slow decay; two
+     SSD backward launches on the same inputs bitwise equal; then each
+     one's time at S 4096 beside its bound (the SSD's also beside its
+     3xTF32 tensor-core bound), its plain backward's, the SSD backward's
+     three launches' shares from a trace and the bytes its design moves;
+     and the SSD forward at the training shape (S 4096, per-chunk states)
+     beside its bounds;
  25. train full-width mamba2-1.3b (48 layers, bf16, seeded random
      weights) for 12 steps of ``make_train_step`` at its defaults (peak lr
      3e-4, warmup 100) at B 1, S 4096 from ``TokenStream``, on a card freed
      of earlier phases: the mean of the last 3 losses below that of the
      first 3; every leaf's gradient finite and non-zero at every step; 96
      SSD forward launches (each layer again under checkpointing) and 48
-     backward launches a step, no plain version on the card; peak memory,
+     backward calls a step, and in the profiled step's trace 48 of each of
+     the backward's three kernels, no plain version on the card; peak memory,
      step wall, tokens/s, 6 N T over the step as a share of 989 TFLOP/s,
      and a profile of one step; the first step's loss and gradient norm
      through autograd of the plain scans on the card, on the same bf16
@@ -301,7 +309,8 @@ FRONT_DOOR_MIX = dict(SERVE_MIX, docs=1, questions=4)
 HANG_UP, HANG_UP_AFTER, HANG_UP_NEW = 1, 2, 64
 CLI_TIMEOUT = 300
 # phases 24-29, training: the backward kernels' names in ptxas' output and
-# in traces; their tolerance against the plain backwards (float32, to that
+# in traces (the SSD backward's three: the dH walk, the chunk terms, the
+# head groups' sum); their tolerance against the plain backwards (float32, to that
 # share of the plain gradient's largest value and in relative norm); the
 # train_4k shape (B 1, S 4096) and the steps of each full-width run, whose
 # first step must agree with autograd of the plain scans to PLAIN_RTOL (in
@@ -311,7 +320,8 @@ CLI_TIMEOUT = 300
 # recurrentgemma-9b's depth, cut so its weights, gradients and AdamW moments
 # (12 bytes a parameter, 45.7 GB) fit the card beside the activations; and
 # the CPU-vs-card runs' steps, batch and sequence
-SSD_BWD_KERNEL, RGLRU_BWD_KERNEL = "ssd_bwd_kernel", "rglru_bwd_ring_kernel"
+SSD_BWD_KERNELS = ("ssd_bwd_dh_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_sum_kernel")
+RGLRU_BWD_KERNEL = "rglru_bwd_ring_kernel"
 BWD_TOL = 1e-5
 TRAIN_SEQ, TRAIN_STEPS, PLAIN_RTOL = 4096, 12, 1e-3
 R_TRAIN_LAYERS = 14
@@ -1025,6 +1035,14 @@ def phase_ssd_kernel(gen):
     return err
 
 
+def ssd_fwd_flops(b, s, h, p, n, chunk):
+    """Operations of the SSD forward on the causal half of each chunk: C.B^T
+    once a chunk (B and C are shared by the heads), and per head (W G) x,
+    the entering state's part of y and the state update."""
+    tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
+    return 2 * b * (s // chunk) * (tri * n + h * (tri * p + 2 * chunk * n * p))
+
+
 def phase_ssd_timing(gen, err):
     """The SSD scan as the serve's span runs it: one engine chunk of 128
     tokens, from a state, with every chunk's state captured."""
@@ -1035,8 +1053,7 @@ def phase_ssd_timing(gen, err):
     f32 = 4
     nbytes = f32 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
                     + (2 + nc) * b * h * p * n)   # x, y, dt_a, B, C, init, final, states
-    tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
-    flops = 2 * b * nc * h * (tri * n + tri * p + 2 * chunk * n * p)
+    flops = ssd_fwd_flops(b, s, h, p, n, chunk)
     t_bound, by = bound(nbytes, flops, torch.float32)
     # the products run on the tensor cores in 3xTF32: three TF32 products
     # each (495 TFLOP/s dense, NVIDIA data sheet)
@@ -2322,18 +2339,43 @@ def _no_spills(lib, kern):
     check(found and not spilled, f"{kern}: no ptxas report, or spills: {spilled}")
 
 
+def _sass_tensor_core(lib, kernels):
+    """``cuobjdump -sass`` of ``lib``'s library: each of ``kernels``' HMMA
+    (tensor-core) and FFMA instructions; fails unless every kernel but the
+    last (the sum, which multiplies nothing) has HMMA instructions."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {k: {"HMMA": 0, "FFMA": 0} for k in kernels}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = next((k for k in kernels if k in line), None)
+        elif fn:
+            for op in ("HMMA", "FFMA"):
+                counts[fn][op] += op in line
+    print(f"  {lib} SASS: " + ", ".join(f"{k} {v['HMMA']} HMMA, {v['FFMA']} FFMA"
+                                         for k, v in counts.items()))
+    check(all(counts[k]["HMMA"] for k in kernels[:-1]),
+          f"{lib}: a product kernel without tensor-core instructions: {counts}")
+
+
 def ssd_bwd_work(b, s, h, p, n, chunk):
     """Bytes and operations of the SSD backward: each input read once (x,
     dt_a, B, C, the per-chunk states, dy, d final state) and each output
-    written once (dx, d dt_a, dB, dC); the multiply-adds its formulas need
-    on the causal half of each chunk: C.B^T once a chunk (B and C are
-    shared by the heads), and per head the products with dy x^T, W G, W D
-    and five state-sized products (dH B, x dH, dy H0, H0 C, the carried dH)."""
+    written once (dx, d dt_a, dB, dC); the multiply-adds the function needs
+    on the causal half of each chunk. Once a chunk, since B and C are shared
+    by the heads: G = C.B^T, and dB's and dC's intra-chunk products with the
+    heads' sum of W D. Per head: D = dy x^T, (W G)^T dy and four state-sized
+    products (dH B, x dH, dy H0, the carried dH); d dt_a's dy.(H0 C) term is
+    dy H0 dotted with C. Also returns the operations of a wider count, for
+    comparison with it: the W D products per head and H0 C a fifth
+    state-sized product."""
     nc = s // chunk
     elems = 3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + (nc + 1) * b * h * p * n
     tri = chunk * (chunk + 1) // 2
-    macs = b * nc * (tri * n + h * (2 * tri * n + 2 * tri * p + 5 * chunk * p * n))
-    return 4 * elems, 2 * macs
+    macs = b * nc * (3 * tri * n + h * (2 * tri * p + 4 * chunk * p * n))
+    wide = b * nc * (tri * n + h * (2 * tri * n + 2 * tri * p + 5 * chunk * p * n))
+    return 4 * elems, 2 * macs, 2 * wide
 
 
 def _ssd_padded(x, dta, bm, cm, pad):
@@ -2347,7 +2389,9 @@ def phase_backward_kernels(gen):
     """Returns the timing rows of the two backward kernels."""
     phase("24 backward kernels vs plain backwards (float32)")
     _no_spills("rglru_scan_bwd", RGLRU_BWD_KERNEL)
-    _no_spills("ssd_scan_bwd", SSD_BWD_KERNEL)
+    for kern in SSD_BWD_KERNELS:
+        _no_spills("ssd_scan_bwd", kern)
+    _sass_tensor_core("ssd_scan_bwd", SSD_BWD_KERNELS)
     rg_err = 0.0
     # (b, s, w, offset): recurrentgemma's training shape (S 4096), S 4000
     # (a partial last slab), short S, ragged channel tiles, and a view one
@@ -2366,9 +2410,13 @@ def phase_backward_kernels(gen):
             rg_err = max(rg_err, _bwd_compare(
                 f"rglru_bwd b={b} s={s} w={w}{' offset 1' if offset else ''} {what}", x, y))
     ssd_err = 0.0
+    # the sweep, mamba2's training shape, a padded S, batch 2 (a grid over
+    # batch), chunk 32 at mamba2's widths and 12 heads (a short last group)
     cases = [(2, 64, 2, 8, 4, 16, 0), (1, 128, 4, 16, 8, 32, 0), (3, 32, 1, 4, 16, 16, 0),
              (1, TRAIN_SEQ, SSD_H, SSD_P, SSD_N, M_BLOCK, 0),
-             (1, TRAIN_SEQ - M_BLOCK, SSD_H, SSD_P, SSD_N, M_BLOCK, 32)]
+             (1, TRAIN_SEQ - M_BLOCK, SSD_H, SSD_P, SSD_N, M_BLOCK, 32),
+             (2, 512, SSD_H, SSD_P, SSD_N, M_BLOCK, 0), (1, 1024, SSD_H, SSD_P, SSD_N, 32, 0),
+             (1, 256, 12, SSD_P, SSD_N, M_BLOCK, 0)]
     for b, s, h, p, n, chunk, pad in cases:
         for slow in (False, True):
             x, dta, bm, cm, _ = ssd_inputs(gen, b, s, h, p, n, slow)
@@ -2401,7 +2449,14 @@ def phase_backward_kernels(gen):
     x, dta, bm, cm, _ = ssd_inputs(gen, b, s, hh, p, n)
     y, final, states = ssd_scan(x, dta, bm, cm, chunk=chunk, return_all_states=True)
     dy, dfinal = torch.randn_like(y), torch.randn_like(final)
-    sbytes, flops = ssd_bwd_work(b, s, hh, p, n, chunk)
+
+    def bwd():
+        return ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+    same = [torch.equal(u, v) for u, v in zip(bwd(), bwd())]
+    print(f"  ssd_bwd determinism [B={b} S={s}]: two launches on the same inputs "
+          f"bitwise equal in dx, d dt_a, dB, dC: {same}")
+    check(all(same), "two launches of the SSD backward on the same inputs differ")
+    sbytes, flops, wide = ssd_bwd_work(b, s, hh, p, n, chunk)
     s_bound, s_by = bound(sbytes, flops, torch.float32)
     rows.append(dict(
         name="ssd_scan_bwd", route="cuda",
@@ -2409,8 +2464,7 @@ def phase_backward_kernels(gen):
         replaces="port-only: the JAX package differentiates its XLA ssd_chunked "
                  "(src/repro/models/ssm.py:61)",
         shape=f"B={b} S={s} H={hh} P={p} N={n} chunk={chunk} f32",
-        ms=time_ms(lambda: ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal),
-                   iters=10),
+        ms=time_ms(bwd, iters=10),
         plain_ms=time_ms(lambda: ssd_mod.ssd_chunked_bwd(x, dta, bm, cm, chunk, states, dy,
                                                          dfinal), iters=10),
         library_ms=None, bound_ms=s_bound, bound_by=s_by, max_abs_err=ssd_err))
@@ -2418,8 +2472,12 @@ def phase_backward_kernels(gen):
     # states it: three TF32 products each (495 TFLOP/s dense, NVIDIA data sheet)
     tc_bound = max((sbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                    (3 * flops / 495e12 * 1e3, "operations"))
+    wide_f32, wide_tc = bound(sbytes, wide, torch.float32)[0], 3 * wide / 495e12 * 1e3
     tc = (f"; tensor-core bound {tc_bound[0]:.4f} ms ({tc_bound[1]}: 3 x {flops / 1e9:.3f} "
-          f"GFLOP at 495 TFLOP/s TF32), kernel at {rows[1]['ms'] / tc_bound[0]:.2f} x it")
+          f"GFLOP at 495 TFLOP/s TF32), kernel at {rows[1]['ms'] / tc_bound[0]:.2f} x it; "
+          f"the wider count (W D products per head, H0 C formed) {wide / 1e9:.3f} GFLOP: "
+          f"bounds {wide_f32:.4f} ms float32, {wide_tc:.4f} ms tensor-core, kernel at "
+          f"{rows[1]['ms'] / wide_f32:.2f} x and {rows[1]['ms'] / wide_tc:.2f} x them")
     for r, work in zip(rows, (f"{nbytes / 1e6:.2f} MB", f"{sbytes / 1e6:.2f} MB, "
                               f"{flops / 1e9:.3f} GFLOP")):
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
@@ -2427,8 +2485,73 @@ def phase_backward_kernels(gen):
               f"{r['ms'] / r['bound_ms']:.2f} x it{tc if r is rows[1] else ''}; plain "
               f"{r['plain_ms']:.4f} ms, library none (no single PyTorch call computes "
               f"the scan's adjoint); {_smi()}")
+    _ssd_bwd_launches(bwd, ssd_bwd_design_bytes(b, s, hh, p, n, chunk), sbytes)
+    _ssd_forward_train_shape(gen)
     torch.cuda.synchronize()
     return rows
+
+
+def ssd_bwd_design_bytes(b, s, h, p, n, chunk):
+    """Bytes the backward kernel's own design moves, by launch, each array
+    counted once per launch that reads or writes it: the walk reads dt_a, C,
+    dy and dfinal and writes dh_end (B,S/L,H,P,N); the chunk terms read x,
+    dt_a, B, C, the states, dy and dh_end and write dx, d dt_a and the head
+    groups' dB and dC partials; their sum reads the partials and writes dB
+    and dC. Not the bound's count (``ssd_bwd_work``), which has no dh_end
+    and no partials."""
+    plan = ssd_mod.ssd_bwd_plan(b, s, h, p, n, chunk)
+    state = int(np.prod(plan.dh_end))
+    part = 2 * int(np.prod(plan.partials))
+    walk = b * s * h + b * s * n + b * s * h * p + b * h * p * n + state
+    body = 3 * b * s * h * p + 2 * b * s * h + 2 * b * s * n + 2 * state + part
+    total = part + 2 * b * s * n
+    return {"walk": 4 * walk, "chunk terms": 4 * body, "sum": 4 * total}
+
+
+def _ssd_bwd_launches(bwd, design, bound_bytes):
+    """Each of the SSD backward's launches: its device time over 10 calls
+    from one trace, its share of the three, and the design's own bytes."""
+    prof, _, dropped, _ = _trace(lambda: [bwd() for _ in range(10)])
+    check(not dropped, "the SSD backward's trace lacks device records")
+    times = {k: 0.0 for k in SSD_BWD_KERNELS}
+    counts = dict.fromkeys(SSD_BWD_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            for k in SSD_BWD_KERNELS:
+                if k in e.name():
+                    times[k] += e.duration_ns() / 1e6
+                    counts[k] += 1
+    check(all(v == 10 for v in counts.values()),
+          f"10 backward calls should launch each of its kernels 10 times: {counts}")
+    total = sum(times.values())
+    for (k, t), (what, nbytes) in zip(times.items(), design.items()):
+        print(f"    {k} ({what}): {t / 10:.4f} ms a call, {t / total:.1%} of the three; "
+              f"the design moves {nbytes / 1e6:.1f} MB here "
+              f"({nbytes / (t / 10 * 1e-3) / 1e12:.2f} TB/s)")
+    allb = sum(design.values())
+    print(f"  the design's own bytes (with dh_end and the partials, each counted once a "
+          f"launch): {allb / 1e6:.1f} MB, {allb / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 "
+          f"TB/s; the bound's inputs and outputs: {bound_bytes / 1e6:.1f} MB")
+
+
+def _ssd_forward_train_shape(gen):
+    """The forward scan as the training path calls it (96 times a mamba2
+    step): B 1, S 4096, from a zero state, every chunk's state out; its
+    time beside its bounds (a measurement only, not a JSON row)."""
+    b, s, h, p, n, chunk = 1, TRAIN_SEQ, SSD_H, SSD_P, SSD_N, M_BLOCK
+    x, dta, bm, cm, _ = ssd_inputs(gen, b, s, h, p, n)
+    nc = s // chunk
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + (1 + nc) * b * h * p * n)
+    flops = ssd_fwd_flops(b, s, h, p, n, chunk)
+    t_bound, by = bound(nbytes, flops, torch.float32)
+    tc = max(nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / 495e12 * 1e3)
+    ms = time_ms(lambda: ssd_scan(x, dta, bm, cm, chunk=chunk, return_all_states=True),
+                 iters=10)
+    print(f"  ssd_scan forward [B={b} S={s} H={h} P={p} N={n} chunk={chunk} f32, zero start, "
+          f"per-chunk states]: kernel {ms:.4f} ms, bound {t_bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP in float32; kernel at "
+          f"{ms / t_bound:.2f} x it), tensor-core bound {tc:.4f} ms (kernel at {ms / tc:.2f} "
+          f"x it); {_smi()}")
 
 
 class _PlainScans:
@@ -2678,7 +2801,7 @@ def phase_train_mamba():
     plain-scan comparison's finding on the float32 copy."""
     phase("25 train mamba2-1.3b at full width")
     cfg = get_config("mamba2-1.3b")
-    seen, by_name, _, first = _train_full_width(cfg, (SSD_KERNEL, SSD_BWD_KERNEL),
+    seen, by_name, _, first = _train_full_width(cfg, (SSD_KERNEL, *SSD_BWD_KERNELS),
                                                 hold_bf16=False)
     plain = _float32_first_step(cfg, first)
     n = cfg.num_layers * TRAIN_STEPS
@@ -2686,9 +2809,12 @@ def phase_train_mamba():
     check(seen["ssd_scan"] == 2 * n and seen["ssd_scan_bwd"] == n,
           f"{TRAIN_STEPS} steps should launch the SSD forward {2 * n} times and its "
           f"backward {n} times: {seen}")
-    check(_launches(by_name, (SSD_KERNEL,)) == 2 * cfg.num_layers
-          and _launches(by_name, (SSD_BWD_KERNEL,)) == cfg.num_layers,
-          "the profiled step's trace does not show the SSD kernels' launches")
+    per_kernel = {k: _launches(by_name, (k,)) for k in (SSD_KERNEL, *SSD_BWD_KERNELS)}
+    print(f"  the profiled step's SSD launches: {per_kernel}")
+    check(per_kernel[SSD_KERNEL] == 2 * cfg.num_layers
+          and all(per_kernel[k] == cfg.num_layers for k in SSD_BWD_KERNELS),
+          "the profiled step's trace does not show the SSD kernels' launches: the "
+          f"forward twice a layer and each backward kernel once: {per_kernel}")
     return seen["ssd_scan_bwd"], plain
 
 

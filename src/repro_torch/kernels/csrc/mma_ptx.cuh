@@ -2,7 +2,9 @@
 // chunked-prefill kernel (chunked_prefill.cu) and the legacy decode walk
 // (paged_warp_walk.cuh): 16-byte cp.async into shared memory, ldmatrix and
 // mma.sync.m16n8k16 with bf16 inputs and float32 accumulators. The RG-LRU
-// scan (rglru_scan.cu) takes its cp.async wrappers from here too.
+// scan (rglru_scan.cu) takes its cp.async wrappers from here too, and the
+// SSD scan and its backward (ssd_scan.cu, ssd_scan_bwd.cu) the 3xTF32
+// operand split and mma.sync.m16n8k8.
 
 #pragma once
 
@@ -19,6 +21,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4 bytes global -> shared (through L1), for rows that are not whole 16-byte copies
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -41,6 +48,24 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// a = hi + lo as TF32 operands. hi is a rounded to TF32 (half a TF32 ulp
+// added to the bits, the 13 low bits cleared), lo = a - hi exactly, with
+// half an ulp added so that the tensor core, which ignores an operand's 13
+// low bits, rounds it too. Integer and float adds at full rate: a
+// cvt.rna.tf32.f32 is a quarter-rate conversion, and twelve of them a
+// product of fragments cost more issue slots than its three mma.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) + 0x1000u;
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -78,9 +78,14 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_ptx.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using ptx::mma_tf32;
+using ptx::split_tf32;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
@@ -130,24 +135,6 @@ __device__ __forceinline__ void cp_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// a = hi + lo as TF32 operands. hi is a rounded to TF32 (half a TF32 ulp
-// added to the bits, the 13 low bits cleared), lo = a - hi exactly, with
-// half an ulp added so that the tensor core, which ignores an operand's 13
-// low bits, rounds it too. Integer and float adds at full rate: a
-// cvt.rna.tf32.f32 is a quarter-rate conversion, and twelve of them a
-// product of fragments cost more issue slots than its three mma.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi)) + 0x1000u;
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // acc + cor += a (16x8, row) * b (8x8, col) in 3xTF32. The tensor core
 // truncates as it accumulates, so a long float32 sum kept in its
 // accumulator drifts toward zero: hi.hi is summed from zero (8 products)

@@ -16,13 +16,20 @@ both.
 The backward (port-only: the JAX package differentiates its XLA
 ``ssd_chunked``, ``repro/models/ssm.py:61``) is a kernel too,
 ``csrc/ssd_scan_bwd.cu``, with ``ssd_chunked_bwd`` its plain version, chosen
-by device in the same way. ``SsdScanFn`` joins forward and backward for
+by device in the same way. Its source note says what bounds it (operations,
+on the tensor cores in 3xTF32) and how the design answers that: only the
+adjoint of the carried state walks the chunks in order, in one launch;
+everything else runs chunk-parallel in a second, with C·Bᵀ computed once
+for a group of heads and dB, dC summed over the group on chip; a third
+sums the groups in a fixed order. ``ssd_bwd_plan`` lays the launches out
+(the CPU tests check it). ``SsdScanFn`` joins forward and backward for
 autograd; it covers the training path's call, which starts from a zero
 state and asks for no per-chunk states.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -276,11 +283,38 @@ ssd_scan.launches = 0
 
 
 # ------------------------------------------------------------ the backward
-def bwd_p_slice(p: int) -> int:
-    """Rows of the state one backward CTA carries: the whole head up to 16
-    rows (padded with zeros), else 32 (two CTAs a head at mamba2's P 64,
-    one wave of 128 CTAs at B 1, H 64)."""
-    return 16 if p <= 16 else 32
+BWD_WALK_ROWS = 32       # state rows of a walk CTA
+BWD_GROUP = 8            # most heads a chunk CTA owns
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    walk_grid: tuple     # (P / BWD_WALK_ROWS slices, H, B): CTAs of the dH walk
+    chunk_grid: tuple    # (head groups, S / chunk, B): CTAs of the chunk terms
+    group: int           # heads a chunk CTA owns (the last group may hold fewer)
+    dh_end: tuple        # the adjoint of the state leaving each chunk
+    partials: tuple      # dB's and dC's partials, one (B,S,N) a head group
+
+
+def ssd_bwd_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> SsdBwdPlan:
+    """The three launches of the backward kernel at x (B,S,H,P), B/C (B,S,N)
+    and ``chunk``: the dH walk, one CTA per (batch, head, BWD_WALK_ROWS
+    state rows); the chunk terms, one CTA per (batch, chunk, group of up to
+    BWD_GROUP heads); and the sum of the groups' dB and dC partials. What
+    the wrapper decides: the head group and the buffers it allocates. The
+    kernels' shared memory is their own (``csrc/ssd_scan_bwd.cu``
+    ``WalkLayout``, ``ChunkLayout``). Raises ValueError outside the
+    kernel's shapes."""
+    if p not in HEAD_DIMS or not 1 <= n <= MAX_STATE or not 1 <= chunk <= MAX_CHUNK \
+            or s < 1 or s % chunk or b < 1 or h < 1:
+        raise ValueError(f"kernel takes P in {HEAD_DIMS}, N <= {MAX_STATE} and S a "
+                         f"positive multiple of the chunk <= {MAX_CHUNK}; got B={b}, "
+                         f"S={s}, H={h}, P={p}, N={n}, chunk={chunk}")
+    group = min(BWD_GROUP, h)
+    groups = -(-h // group)
+    return SsdBwdPlan(walk_grid=(-(-p // BWD_WALK_ROWS), h, b),
+                      chunk_grid=(groups, s // chunk, b), group=group,
+                      dh_end=(b, s // chunk, h, p, n), partials=(groups, b, s, n))
 
 
 def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
@@ -290,9 +324,11 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
     Returns (dx, d dt_a, dB, dC), float32.
 
     CPU tensors run the plain backward. CUDA tensors launch the kernel on
-    contiguous float32 operands: one CTA per (batch, head, ``bwd_p_slice``
-    rows), then a second launch that sums the heads' and slices' partial
-    dB, dC and d dt_a in a fixed order."""
+    contiguous, 16-byte aligned float32 operands, laid out by
+    ``ssd_bwd_plan``: the walk writes the adjoint of every chunk's final
+    state into a (B,S/chunk,H,P,N) buffer, the chunk-parallel launch writes
+    dx and d dt_a and each head group's dB and dC, and a third sums the
+    groups in a fixed order (bitwise-equal results run to run)."""
     if x.device.type == "cpu":
         return ssd_chunked_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal)
     if x.device.type != "cuda":
@@ -306,23 +342,22 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{name} must be {shape} on {x.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
+    plan = ssd_bwd_plan(bsz, s, h, p, n, chunk)
     x, dt_a, b_mat, c_mat, states, dy, dfinal = (
-        t.float().contiguous() for t in (x, dt_a, b_mat, c_mat, states, dy, dfinal))
-    ps = bwd_p_slice(p)
-    nsl = p // ps if p > ps else 1
+        _aligned(t) for t in (x, dt_a, b_mat, c_mat, states, dy, dfinal))
     f32 = dict(dtype=torch.float32, device=x.device)
+    dh_end = torch.empty(plan.dh_end, **f32)
+    db_part = torch.empty(plan.partials, **f32)
+    dc_part = torch.empty(plan.partials, **f32)
     dx = torch.empty_like(x)
-    dta_part = torch.empty((nsl, bsz, s, h), **f32)
-    db_part = torch.empty((h * nsl, bsz, s, n), **f32)
-    dc_part = torch.empty((h * nsl, bsz, s, n), **f32)
     d_dta = torch.empty((bsz, s, h), **f32)
     db = torch.empty((bsz, s, n), **f32)
     dc = torch.empty((bsz, s, n), **f32)
     err = fn(x.data_ptr(), dt_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-             states.data_ptr(), dy.data_ptr(), dfinal.data_ptr(), dx.data_ptr(),
-             dta_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-             d_dta.data_ptr(), db.data_ptr(), dc.data_ptr(),
-             bsz, s, h, p, n, chunk, ps, torch.cuda.current_stream(x.device).cuda_stream)
+             states.data_ptr(), dy.data_ptr(), dfinal.data_ptr(), dh_end.data_ptr(),
+             dx.data_ptr(), d_dta.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+             db.data_ptr(), dc.data_ptr(), bsz, s, h, p, n, chunk, plan.group,
+             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
     return dx, d_dta, db, dc

@@ -663,13 +663,19 @@ def test_rglru_backward_kernel_matches_plain(cuda, case):
             torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * float(y.abs().max()))
 
 
+# the backward's cases: the forward's, and 12 heads (a short last head group)
+SSD_BWD_CASES = SSD_CASES + [(1, 128, 12, 64, 128, 64)]
+
+
 @pytest.mark.parametrize("slow", [False, True], ids=["decay", "slow-decay"])
 @pytest.mark.parametrize("pad", [0, 11], ids=["whole", "padded"])
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
 def test_ssd_backward_kernel_matches_plain(cuda, case, pad, slow):
     """The four gradients of the SSD backward kernel against its plain
     backward from a zero state; "padded": the last 11 steps as the model
-    pads a sequence (dt 0, zero x, B, C, and no cotangent)."""
+    pads a sequence (dt 0, zero x, B, C, and no cotangent). A second call on
+    the same inputs gives bitwise-equal gradients (every sum of the three
+    launches runs in a fixed order)."""
     from repro_torch.kernels import ssd_scan as ssd_mod
     rng = np.random.default_rng(case[1] + case[3] + pad + slow)
     x, dta, bm, cm, _ = ssd_inputs(rng, case, cuda, slow)
@@ -681,9 +687,11 @@ def test_ssd_backward_kernel_matches_plain(cuda, case, pad, slow):
     dy[:, s - pad:] = 0.0
     launches = ssd_mod.ssd_scan_bwd.launches
     got = ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
+    again = ssd_mod.ssd_scan_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
     want = ssd_mod.ssd_chunked_bwd(x, dta, bm, cm, chunk, states, dy, dfinal)
     torch.cuda.synchronize()
-    assert ssd_mod.ssd_scan_bwd.launches == launches + 1
+    assert ssd_mod.ssd_scan_bwd.launches == launches + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32 and torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))

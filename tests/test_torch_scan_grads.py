@@ -6,12 +6,17 @@ seeded numpy inputs, in float32 to 1e-5 of each gradient's largest value:
 ``repro.models.ssm.ssd_chunked`` (the sweep of tests/test_kernels.py, a
 padded S as ``ssm_context`` pads it, a slow decay), and the associative scan
 of ``repro/models/rglru.py:66`` and ``repro.kernels.ref.ref_rglru_scan``.
-Then ``torch.autograd.gradcheck`` in float64 on the plain backwards
+The SSD backward kernel's design (``csrc/ssd_scan_bwd.cu``: the dH walk,
+the chunk terms with dB and dC summed by head group, the groups' sum) is
+mirrored in float64 and held against both, and its launch plan
+(``ssd_bwd_plan``) is checked. Then ``torch.autograd.gradcheck`` in float64 on the plain backwards
 directly: each under a ``torch.autograd.Function`` whose forward is a
 float64 recurrence written here (the port's plain forwards compute in
 float32). Last, the dispatch in ``ops``: without a gradient wanted the scans
 stay outside their Functions; with one, the serving path's options raise.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -86,6 +91,134 @@ def test_ssd_plain_backward_matches_jax_vjp(case, slow, pad):
     for name, g, w in zip(("dx", "d dt_a", "dB", "dC"), got, want):
         assert g.dtype == torch.float32
         _close(g, w, name)
+
+
+# ------------------------------------------------------------ the kernel's design
+def _staged_bwd64(x, dta, bm, cm, chunk, states, dy, dfinal, group):
+    """The SSD backward kernel's stages (``csrc/ssd_scan_bwd.cu``) in float64:
+    the walk carries only dH across chunks, last first, and keeps it for
+    every chunk; then each (chunk, group of ``group`` heads) computes C B^T
+    once and its heads' terms from H0 (the saved state before the chunk)
+    and dH alone, with dB and dC summed over the group in head order, the
+    intra-chunk ones through the group's sum of W D; last, the groups'
+    partials summed in group order. Returns (dx, d dt_a, dB, dC)."""
+    f = [t.double() for t in (x, dta, bm, cm, states, dy, dfinal)]
+    x, dta, bm, cm, states, dy, dfinal = f
+    b, s, h, p = x.shape
+    n, nc, L = bm.shape[-1], s // chunk, chunk
+    dh_end = torch.empty((b, nc, h, p, n), dtype=torch.float64)
+    dh = dfinal
+    for c in range(nc - 1, -1, -1):
+        dh_end[:, c] = dh
+        if c > 0:
+            rows = slice(c * L, (c + 1) * L)
+            a = torch.cumsum(dta[:, rows], 1)                                  # (b,L,h)
+            dh = (torch.exp(a[:, -1])[..., None, None] * dh
+                  + torch.einsum("blhp,blh,bln->bhpn", dy[:, rows], torch.exp(a), cm[:, rows]))
+    groups = -(-h // group)
+    db_part = torch.zeros((groups, b, s, n), dtype=torch.float64)
+    dc_part = torch.zeros_like(db_part)
+    dx, d_dta = torch.zeros_like(x), torch.zeros_like(dta)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    for c in range(nc):
+        rows = slice(c * L, (c + 1) * L)
+        bc, cc = bm[:, rows], cm[:, rows]                                      # (b,L,n)
+        g = torch.einsum("bln,bsn->bls", cc, bc)
+        for gi in range(groups):
+            wd_sum = torch.zeros((b, L, L), dtype=torch.float64)
+            for hh in range(gi * group, min(h, (gi + 1) * group)):
+                xs, ys = x[:, rows, hh], dy[:, rows, hh]                       # (b,L,p)
+                a = torch.cumsum(dta[:, rows, hh], 1)                          # (b,L)
+                ea, er = torch.exp(a), torch.exp(a[:, -1:] - a)
+                w = torch.where(causal, torch.exp(a[:, :, None] - a[:, None, :]), 0.0)
+                h0 = states[:, c - 1, hh] if c > 0 else torch.zeros_like(dh_end[:, c, hh])
+                dhc = dh_end[:, c, hh]                                         # (b,p,n)
+                u = torch.einsum("bsn,bpn->bsp", bc, dhc)
+                v = torch.einsum("bln,bpn->blp", cc, h0)
+                wg = w * g
+                d = torch.einsum("blp,bsp->bls", ys, xs)
+                m = wg * d
+                dx[:, rows, hh] = torch.einsum("bls,blp->bsp", wg, ys) + er[..., None] * u
+                st = er * (xs * u).sum(-1)
+                da = m.sum(-1) - m.sum(-2) + ea * (ys * v).sum(-1) - st
+                da[:, -1] += ea[:, -1] * (dhc * h0).sum((-1, -2)) + st.sum(-1)
+                d_dta[:, rows, hh] = torch.flip(torch.cumsum(torch.flip(da, (1,)), 1), (1,))
+                db_part[gi, :, rows] += torch.einsum("bs,bsp,bpn->bsn", er, xs, dhc)
+                dc_part[gi, :, rows] += torch.einsum("bl,blp,bpn->bln", ea, ys, h0)
+                wd_sum += w * d
+            db_part[gi, :, rows] += torch.einsum("bls,bln->bsn", wd_sum, cc)
+            dc_part[gi, :, rows] += torch.einsum("bls,bsn->bln", wd_sum, bc)
+    db, dc = db_part[0].clone(), dc_part[0].clone()
+    for gi in range(1, groups):
+        db += db_part[gi]
+        dc += dc_part[gi]
+    return dx, d_dta, db, dc
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_bwd_case(case, slow, pad):
+    """Seeded float64 inputs, the float64 sequential states, and JAX's vjp
+    of ``ssd_chunked`` on their float32 values."""
+    b, s, h, p, n, chunk = case
+    rng = np.random.default_rng([b, s, h, p, n, chunk, int(slow), pad, 64])
+    x, dta, bm, cm = _ssd_inputs(rng, b, s, h, p, n, slow, pad)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dy[:, s - pad:] = 0.0
+    dfinal = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    want = jax.jit(lambda ins, cts: jax.vjp(
+        lambda *i: jssd(*i, chunk), *ins)[1](cts))(
+        (x, dta, bm, cm), (jnp.asarray(dy), jnp.asarray(dfinal)))
+    ins = [torch.from_numpy(t).double() for t in (x, dta, bm, cm)]
+    states = _ssd_sequential64(*ins, chunk)[2]
+    return ins, states, torch.from_numpy(dy).double(), torch.from_numpy(dfinal).double(), \
+        [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("group", [1, 2, "all"], ids=lambda g: f"group-{g}")
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("slow", [False, True], ids=["normal", "slow-decay"])
+@pytest.mark.parametrize("pad", [0, 11], ids=["whole", "padded"])
+def test_ssd_kernel_design_matches_plain_backward(case, slow, pad, group):
+    """The kernel's stages in float64 (the walk, the chunk terms with dB and
+    dC summed by head group, the groups' sum) against the plain backward in
+    float64 to 1e-10, and against JAX's vjp to 1e-5, for groups of one head,
+    two, and all of them."""
+    ins, states, dy, dfinal, want = _ssd_bwd_case(case, slow, pad)
+    chunk = case[-1]
+    g = case[2] if group == "all" else min(group, case[2])
+    got = _staged_bwd64(*ins, chunk, states, dy, dfinal, g)
+    plain = ssd_chunked_bwd(*ins, chunk, states, dy, dfinal)
+    for name, a, pl, w in zip(("dx", "d dt_a", "dB", "dC"), got, plain, want):
+        assert a.dtype == pl.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), pl.numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(pl.abs().max()), err_msg=name)
+        _close(a.float(), w, name)
+
+
+def test_ssd_bwd_plan():
+    """The backward's three launches: at mamba2-1.3b's training shape two
+    walk CTAs a head (32 state rows each), eight head groups a chunk (512
+    CTAs), partials 2 x 16.8 MB in place of 2 x 268.4 MB, dh_end
+    as large as the saved states; the sweep's heads of 4-16 rows one walk
+    slice; a head count that is no multiple of 8 leaves a short last group;
+    shapes outside the kernel raise."""
+    p = ssd_mod.ssd_bwd_plan(1, 4096, 64, 64, 128, 64)
+    assert (p.walk_grid, p.chunk_grid, p.group) == ((2, 64, 1), (8, 64, 1), 8)
+    assert (p.dh_end, p.partials) == ((1, 64, 64, 64, 128), (8, 1, 4096, 128))
+    assert 4 * np.prod(p.partials) == 16_777_216
+    assert 4 * np.prod(p.dh_end) == 134_217_728
+    p = ssd_mod.ssd_bwd_plan(2, 64, 2, 8, 4, 16)
+    assert (p.walk_grid, p.chunk_grid, p.group, p.partials) == (
+        (1, 2, 2), (1, 4, 2), 2, (1, 2, 64, 4))
+    p = ssd_mod.ssd_bwd_plan(3, 32, 1, 4, 16, 16)
+    assert (p.walk_grid, p.chunk_grid, p.group) == ((1, 1, 3), (1, 2, 3), 1)
+    p = ssd_mod.ssd_bwd_plan(2, 96, 12, 64, 128, 32)
+    assert (p.walk_grid, p.chunk_grid, p.group, p.partials) == (
+        (2, 12, 2), (2, 3, 2), 8, (2, 2, 96, 128))
+    for bad in [(1, 64, 2, 32, 16, 16), (1, 64, 2, 64, 129, 16), (1, 128, 2, 64, 16, 128),
+                (1, 100, 2, 64, 16, 64), (0, 64, 2, 64, 16, 64)]:
+        with pytest.raises(ValueError, match="kernel takes"):
+            ssd_mod.ssd_bwd_plan(*bad)
 
 
 def _jax_assoc_scan(a, b):
