@@ -176,7 +176,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gradient norms to 1e-5, the first step's gradients and parameter
      steps to the CPU tests' tolerances, the parameter gaps in lr units;
  29. ``python -m repro_torch.launch.train --device cuda`` on reduced
-     mamba2 for 3 steps, its checkpoint restored on the card leaf for leaf.
+     mamba2 for 3 steps, its checkpoint restored on the card leaf for leaf;
+ 30. the production dry run (``python -m repro_torch.launch.dryrun``, a
+     ``fake`` process group of 256 ranks in each subprocess, on the host)
+     at full width: mamba2-1.3b, qwen3-4b and qwen3-moe-30b-a3b at
+     train_4k and decode_32k on the single-pod mesh, side by side; each
+     record's per-rank bytes, ``fits_80gb`` against the card's memory,
+     collectives and trace time, failing on any record not ``ok``; and the
+     dry run's count of phase 31's step on a (1, 1) mesh;
+ 31. phase 25's run again on a (data 1, model 1) ``DeviceMesh`` over an
+     NCCL process group of one rank (a ``HashStore``, no network), with the
+     logical-axis hook installed: full-width mamba2-1.3b distributed by
+     ``param_shardings`` with ZeRO-1 moments, 12 steps whose losses and
+     gradient norms must equal phase 25's bitwise, the SSD forward and
+     backward kernels launched through ``local_map`` (96 and 48 a step, in
+     the counters and in a profiled step's trace), peak memory at least
+     the dry run's per-rank bytes; then ``Model.prefill`` of a 128-token
+     prompt and 8 greedy decode steps on the mesh, whose tokens must equal
+     the unsharded path's on the same weights; the group destroyed after.
 
 A profile's figures come from a trace that holds the device record of every
 launch, copy and memset of the step: the profiler at times drops the first
@@ -223,7 +240,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_bwd_work, ssd_chunked, ssd_fwd_flops, ssd_scan)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.state_cache import StateRunner  # noqa: E402
@@ -326,6 +344,14 @@ BWD_TOL = 1e-5
 TRAIN_SEQ, TRAIN_STEPS, PLAIN_RTOL = 4096, 12, 1e-3
 R_TRAIN_LAYERS = 14
 TRAIN_STEPS_PARITY, PARITY_BATCH, PARITY_SEQ = 3, 2, 32
+# phases 30-31, the multi-device layer: the dry run's set at full width on
+# the single-pod mesh (one subprocess each, side by side, with the (1, 1)
+# mesh's count for phase 31 beside them) and its time limit; phase 31's
+# prompt and decode steps after its training steps
+DRYRUN_SET = [(a, s) for a in ("mamba2-1.3b", "qwen3-4b", "qwen3-moe-30b-a3b")
+              for s in ("train_4k", "decode_32k")]
+DRYRUN_TIMEOUT = 600
+MESH_PROMPT, MESH_DECODE = 128, 8
 
 
 def check(cond, msg):
@@ -1035,14 +1061,6 @@ def phase_ssd_kernel(gen):
     return err
 
 
-def ssd_fwd_flops(b, s, h, p, n, chunk):
-    """Operations of the SSD forward on the causal half of each chunk: C.B^T
-    once a chunk (B and C are shared by the heads), and per head (W G) x,
-    the entering state's part of y and the state update."""
-    tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
-    return 2 * b * (s // chunk) * (tri * n + h * (tri * p + 2 * chunk * n * p))
-
-
 def phase_ssd_timing(gen, err):
     """The SSD scan as the serve's span runs it: one engine chunk of 128
     tokens, from a state, with every chunk's state captured."""
@@ -1291,7 +1309,8 @@ def phase_rglru_timing(gen, err):
     for s in (128, 3072):
         a, bb = rglru_inputs(gen, 1, s, W)
         nbytes = 3 * 4 * s * W                     # a, b in; h out; float32
-        t_bound, by = bound(nbytes, 2 * s * W, torch.float32)
+        t_bound, by = bound(nbytes, rglru_mod.rglru_flops(1, s, W),
+                            torch.float32)
         plan = rglru_mod.rglru_plan(1, s, W, torch.float32)
         out = torch.empty_like(a)
         floor = time_ms(lambda: rglru_mod.empty_launch(1, W, plan, DEV))
@@ -2359,25 +2378,6 @@ def _sass_tensor_core(lib, kernels):
           f"{lib}: a product kernel without tensor-core instructions: {counts}")
 
 
-def ssd_bwd_work(b, s, h, p, n, chunk):
-    """Bytes and operations of the SSD backward: each input read once (x,
-    dt_a, B, C, the per-chunk states, dy, d final state) and each output
-    written once (dx, d dt_a, dB, dC); the multiply-adds the function needs
-    on the causal half of each chunk. Once a chunk, since B and C are shared
-    by the heads: G = C.B^T, and dB's and dC's intra-chunk products with the
-    heads' sum of W D. Per head: D = dy x^T, (W G)^T dy and four state-sized
-    products (dH B, x dH, dy H0, the carried dH); d dt_a's dy.(H0 C) term is
-    dy H0 dotted with C. Also returns the operations of a wider count, for
-    comparison with it: the W D products per head and H0 C a fifth
-    state-sized product."""
-    nc = s // chunk
-    elems = 3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + (nc + 1) * b * h * p * n
-    tri = chunk * (chunk + 1) // 2
-    macs = b * nc * (3 * tri * n + h * (2 * tri * p + 4 * chunk * p * n))
-    wide = b * nc * (tri * n + h * (2 * tri * n + 2 * tri * p + 5 * chunk * p * n))
-    return 4 * elems, 2 * macs, 2 * wide
-
-
 def _ssd_padded(x, dta, bm, cm, pad):
     """The last ``pad`` steps as ``ssm_context`` pads a sequence to a chunk
     multiple: dt = 0 (decay 1) and zero x, B and C."""
@@ -2435,7 +2435,7 @@ def phase_backward_kernels(gen):
     h = rglru_scan(a, bb)
     g = torch.randn_like(h)
     nbytes = 5 * 4 * TRAIN_SEQ * W                 # a, h, g in; da, db out
-    t_bound, by = bound(nbytes, 4 * TRAIN_SEQ * W, torch.float32)
+    t_bound, by = bound(nbytes, rglru_mod.rglru_bwd_flops(1, TRAIN_SEQ, W), torch.float32)
     rows.append(dict(
         name="rglru_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
@@ -2697,8 +2697,10 @@ def _train_full_width(cfg, ours, hold_bf16=True):
     over the step as a share of 989 TFLOP/s, and a profile of one step.
     Returns the scans' launches over the steps, the trace's {kernel: (ms,
     launches)}, what the held comparison found amiss (None when it agrees
-    or is not held), and the first step's (loss, gradient norm) through the
-    kernels and through the plain scans."""
+    or is not held), the first step's (loss, gradient norm) through the
+    kernels and through the plain scans, and the run: every step's loss and
+    gradient norm, the step wall, the peak memory, and the profiled step's
+    device busy ms and device records."""
     _free_card(f"training {cfg.name}")
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -2759,7 +2761,10 @@ def _train_full_width(cfg, ours, hold_bf16=True):
     batch = batches[-1]
     by_name = _train_profile(lambda: step(params, opt, batch), wall * 1e3, ours)
     del model, params, opt, step
-    return seen, by_name, plain if hold_bf16 else None, first
+    run = dict(losses=losses, gnorms=gnorms, wall=wall, peak=peak,
+               busy=sum(t for t, _ in by_name.values()),
+               launches=sum(n for _, n in by_name.values()))
+    return seen, by_name, plain if hold_bf16 else None, first, run
 
 
 def _float32_first_step(cfg, bf16_first):
@@ -2797,12 +2802,13 @@ def _float32_first_step(cfg, bf16_first):
 
 
 def phase_train_mamba():
-    """Returns the SSD backward kernel's launches over the steps and the
-    plain-scan comparison's finding on the float32 copy."""
+    """Returns the SSD backward kernel's launches over the steps, the
+    plain-scan comparison's finding on the float32 copy, and the run (for
+    phase 31)."""
     phase("25 train mamba2-1.3b at full width")
     cfg = get_config("mamba2-1.3b")
-    seen, by_name, _, first = _train_full_width(cfg, (SSD_KERNEL, *SSD_BWD_KERNELS),
-                                                hold_bf16=False)
+    seen, by_name, _, first, run = _train_full_width(cfg, (SSD_KERNEL, *SSD_BWD_KERNELS),
+                                                     hold_bf16=False)
     plain = _float32_first_step(cfg, first)
     n = cfg.num_layers * TRAIN_STEPS
     # each layer's scan runs again when its checkpointed unit is recomputed
@@ -2815,7 +2821,7 @@ def phase_train_mamba():
           and all(per_kernel[k] == cfg.num_layers for k in SSD_BWD_KERNELS),
           "the profiled step's trace does not show the SSD kernels' launches: the "
           f"forward twice a layer and each backward kernel once: {per_kernel}")
-    return seen["ssd_scan_bwd"], plain
+    return seen["ssd_scan_bwd"], plain, run
 
 
 def phase_train_hybrid():
@@ -2830,7 +2836,7 @@ def phase_train_hybrid():
     print(f"  depth {R_TRAIN_LAYERS} of 38: {units} checkpointed (rglru, rglru, attn) units "
           f"and an unrolled {segs[1][1] if len(segs) > 1 else ()}; {scanned + unrolled} "
           f"RG-LRU layers")
-    seen, by_name, plain, _ = _train_full_width(cfg, (RGLRU_KERNEL, RGLRU_BWD_KERNEL))
+    seen, by_name, plain, _, _ = _train_full_width(cfg, (RGLRU_KERNEL, RGLRU_BWD_KERNEL))
     check(seen["rglru_scan"] == (2 * scanned + unrolled) * TRAIN_STEPS
           and seen["rglru_scan_bwd"] == (scanned + unrolled) * TRAIN_STEPS,
           f"{TRAIN_STEPS} steps should launch the RG-LRU forward "
@@ -2845,7 +2851,7 @@ def phase_train_hybrid():
 def phase_train_qwen():
     """Returns the plain-scan comparison's finding."""
     phase("27 train qwen3-4b at full width")
-    seen, _, plain, _ = _train_full_width(get_config("qwen3-4b"), ("none of ours",))
+    seen, _, plain, _, _ = _train_full_width(get_config("qwen3-4b"), ("none of ours",))
     check(not any(seen.values()), f"qwen3-4b's training launched scan kernels: {seen}")
     return plain
 
@@ -2951,6 +2957,200 @@ def phase_train_cli():
               f"equal to the file, step {step_n}")
 
 
+def _full(t):
+    """A DTensor's whole value (on a mesh of one rank, its shard)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+_MESH_COUNT = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+with dryrun.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    m = dryrun.measure(get_config("mamba2-1.3b"), InputShape("train_4k", {seq}, 1, "train"),
+                       mesh)
+print(json.dumps(m["per_rank_bytes"]))
+"""
+
+
+def phase_dryrun():
+    """Returns phase 31's per-rank bytes: the dry run's count of
+    mamba2-1.3b's training step at B 1 on a (1, 1) mesh."""
+    phase("30 the production dry run at full width (fake process group, on the host)")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as out:
+        cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
+                 "--out", out] for a, s in DRYRUN_SET]
+        cmds.append([sys.executable, "-c", _MESH_COUNT.format(seq=TRAIN_SEQ)])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for c in cmds]
+        try:
+            results = [p.communicate(timeout=DRYRUN_TIMEOUT) + (p.returncode,) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for c, (stdout, stderr, rc) in zip(cmds, results):
+            check(rc == 0, f"{' '.join(c[1:4])} failed: {stdout[-2000:]}{stderr[-2000:]}")
+        recs = [json.loads(f.read_text()) for f in sorted(Path(out).glob("*.json"))]
+    check(len(recs) == len(DRYRUN_SET), f"{len(recs)} dry-run records of {len(DRYRUN_SET)}")
+    print(f"  {len(recs)} combinations on pod16x16 (256 ranks), one process each, side by "
+          f"side: {wall:.1f} s wall; {_smi()}")
+    for r in recs:
+        check(r["ok"], f"dry run {r['arch']} x {r['shape']}: {r.get('error')}")
+        b, c, rf = r["per_rank_bytes"], r["collectives"], r["roofline"]
+        ops_ = ", ".join(f"{k} {c[k] / 1e9:.3f}" for k in ("all-reduce", "all-gather",
+                                                        "reduce-scatter", "all-to-all"))
+        print(f"  {r['arch']} x {r['shape']}: per rank params {b['params'] / 1e9:.3f} GB, "
+              f"grads {b['grads'] / 1e9:.3f}, moments {b['moments'] / 1e9:.3f}, inputs "
+              f"{b['inputs'] / 1e9:.3f}, total {b['total'] / 1e9:.3f} GB, fits_80gb "
+              f"{r['fits_80gb']} (card {r['device_memory_bytes'] / 1e9:.2f} GB); "
+              f"{r['flops']:.4e} flops, {r['bytes_accessed']:.4e} B accessed; collectives "
+              f"{c['count']} ops, {c['total'] / 1e9:.3f} GB ({ops_}); roofline compute "
+              f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, collective >= "
+              f"{rf['collective_s']:.4f} s ({rf['dominant']}); traced in {r['wall_s']:.1f} s")
+    mesh_bytes = json.loads(results[-1][0].splitlines()[-1])
+    print(f"  mamba2-1.3b train at B 1, S {TRAIN_SEQ} on a (1, 1) mesh: "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in mesh_bytes.items()))
+    return mesh_bytes
+
+
+def _greedy(model, params, prompt, pos_like):
+    """The prefill's token and MESH_DECODE greedy decode steps' tokens, and
+    the logits of each."""
+    logits, cache = model.prefill(params, prompt)
+    cur = torch.argmax(logits, dim=-1)
+    out, seen = [int(_full(cur)[0])], [_full(logits)]
+    for i in range(MESH_DECODE):
+        logits, cache = model.decode_step(params, cur, cache, pos_like(cur, MESH_PROMPT + i))
+        cur = torch.argmax(logits, dim=-1)
+        out.append(int(_full(cur)[0]))
+        seen.append(_full(logits))
+    return out, seen
+
+
+def phase_train_mesh(mamba_run, mesh_bytes):
+    """Phase 25's training run again, distributed over a (data 1, model 1)
+    ``DeviceMesh`` on the card with the logical-axis hook installed."""
+    phase("31 train mamba2-1.3b at full width on a (data 1, model 1) DeviceMesh "
+          "(NCCL, one rank)")
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    _free_card("training on the mesh")
+    cfg = get_config("mamba2-1.3b")
+    model = Model(cfg)
+    routed, inner = [0], ops._dtensor_ssd_scan
+
+    def counted(*a, **k):
+        routed[0] += 1
+        return inner(*a, **k)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    ops._dtensor_ssd_scan = counted
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        params = sharding.param_shardings(
+            model.init(torch.Generator(device=DEV).manual_seed(0)), mesh)
+        opt = sharding.zero1_adamw_init(params, mesh)
+        _, placements = sharding.input_specs(
+            cfg, InputShape("train_4k", TRAIN_SEQ, 1, "train"), mesh)
+        stream = TokenStream(cfg.vocab_size, seed=0).batches(1, TRAIN_SEQ)
+        batches = [sharding.distribute({k: torch.as_tensor(v).to(DEV)
+                                        for k, v in next(stream).items()}, placements, mesh)
+                   for _ in range(TRAIN_STEPS + 1)]
+        print(f"  mesh {mesh}; {len(tree_leaves(params))} DTensor leaves, "
+              f"{sum(isinstance(t, DTensor) for t in tree_leaves(opt.m))} ZeRO-1 moments; "
+              f"{_smi()}")
+        step = make_train_step(model, total_steps=TRAIN_STEPS, device=DEV)
+        counts = _scan_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _, reset in counts.values():
+            reset()
+        losses, gnorms, walls = [], [], []
+        with sharding.on_mesh(mesh):
+            for i, batch in enumerate(batches[:TRAIN_STEPS]):
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                losses.append(float(_full(met["loss"])))
+                gnorms.append(float(_full(met["grad_norm"])))
+                walls.append(time.perf_counter() - t0)
+                print(f"  step {i:2d}: loss {losses[-1]:.4f} gnorm {gnorms[-1]:.4f} wall "
+                      f"{walls[-1]:.3f} s")
+        seen = {k: get() for k, (get, _) in counts.items()}
+        peak = torch.cuda.max_memory_allocated()
+        wall = statistics.mean(walls[2:])
+        n = cfg.num_layers * TRAIN_STEPS
+        print(f"  launches over the {TRAIN_STEPS} steps: "
+              + ", ".join(f"{k} {v}" for k, v in seen.items())
+              + f"; SSD scans through local_map {routed[0]}")
+        same = losses == mamba_run["losses"] and gnorms == mamba_run["gnorms"]
+        print(f"  against phase 25 (the same weights and batches, no mesh): losses and "
+              f"gradient norms of all {TRAIN_STEPS} steps {'bitwise equal' if same else 'DIFFER'}"
+              f"; step wall {wall:.3f} s vs {mamba_run['wall']:.3f} s "
+              f"({wall / mamba_run['wall'] - 1:+.1%}); peak memory {peak / 1e9:.2f} GB vs "
+              f"{mamba_run['peak'] / 1e9:.2f} GB, at least the dry run's "
+              f"{mesh_bytes['total'] / 1e9:.2f} GB a rank")
+        check(same, f"the mesh's steps differ from phase 25's: losses {losses} vs "
+              f"{mamba_run['losses']}, gradient norms {gnorms} vs {mamba_run['gnorms']}")
+        check(seen["ssd_scan"] == 2 * n and seen["ssd_scan_bwd"] == n and routed[0] == 2 * n,
+              f"{TRAIN_STEPS} steps should launch the SSD forward {2 * n} times through "
+              f"local_map and its backward {n} times: {seen}, routed {routed[0]}")
+        check(seen["plain"] == 0, f"{seen['plain']} plain scan calls on the card")
+        check(peak >= mesh_bytes["total"], f"peak memory {peak} B under the dry run's "
+              f"per-rank {mesh_bytes['total']} B")
+
+        def profiled():
+            with sharding.on_mesh(mesh):
+                step(params, opt, batches[-1])
+        by_name = _train_profile(profiled, wall * 1e3, (SSD_KERNEL, *SSD_BWD_KERNELS))
+        per_kernel = {k: _launches(by_name, (k,)) for k in (SSD_KERNEL, *SSD_BWD_KERNELS)}
+        busy = sum(t for t, _ in by_name.values())
+        records = sum(c for _, c in by_name.values())
+        print(f"  the profiled step's SSD launches: {per_kernel}; device busy {busy:.1f} ms "
+              f"({busy / (wall * 1e3):.1%} of the step) vs phase 25's {mamba_run['busy']:.1f} "
+              f"ms ({mamba_run['busy'] / (mamba_run['wall'] * 1e3):.1%}); {records} device "
+              f"records vs {mamba_run['launches']}")
+        check(per_kernel[SSD_KERNEL] == 2 * cfg.num_layers
+              and all(per_kernel[k] == cfg.num_layers for k in SSD_BWD_KERNELS),
+              f"the profiled step's trace does not show the SSD kernels' launches: {per_kernel}")
+
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        prompt = torch.randint(0, cfg.vocab_size, (1, MESH_PROMPT), device=DEV, generator=gen)
+        _, pl = sharding.input_specs(cfg, InputShape("p", MESH_PROMPT, 1, "prefill"), mesh)
+        before = ssd_scan.launches
+        with torch.no_grad(), sharding.on_mesh(mesh):
+            got, got_logits = _greedy(model, params, sharding.distribute({"tokens": prompt}, pl, mesh)
+                          ["tokens"], lambda cur, p: DTensor.from_local(
+                              torch.full((1,), p, dtype=torch.int32, device=DEV), mesh,
+                              cur.placements, run_check=False))
+        prefill_launches = ssd_scan.launches - before
+        plain = tree_map(_full, params)
+        with torch.no_grad():
+            want, want_logits = _greedy(
+                model, plain, prompt,
+                lambda cur, p: torch.full((1,), p, dtype=torch.int32, device=DEV))
+        same_logits = all(torch.equal(a, b) for a, b in zip(got_logits, want_logits))
+        print(f"  prefill of {MESH_PROMPT} tokens and {MESH_DECODE} decode steps on the mesh "
+              f"({prefill_launches} SSD launches): {got}; unsharded: {want}; logits "
+              f"{'bitwise equal' if same_logits else 'DIFFER'}")
+        check(got == want, f"the mesh's tokens {got} differ from the unsharded {want}")
+        check(prefill_launches == cfg.num_layers,
+              f"the prefill on the mesh launched the SSD kernel {prefill_launches} times")
+        del params, opt, plain, batches, step
+    finally:
+        ops._dtensor_ssd_scan = inner
+        dist.destroy_process_group()
+
+
 def main():
     kind, count = phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -2982,12 +3182,15 @@ def main():
     phase_front_door(engine_loop)
     t_train = time.perf_counter()
     rows += phase_backward_kernels(gen)
-    launches["ssd_scan_bwd"], plain_mamba = phase_train_mamba()
+    launches["ssd_scan_bwd"], plain_mamba, mamba_run = phase_train_mamba()
     launches["rglru_scan_bwd"], plain_hybrid = phase_train_hybrid()
     plain_qwen = phase_train_qwen()
     phase_train_parity()
     phase_train_cli()
     print(f"phases 24-29: {time.perf_counter() - t_train:.1f} s wall")
+    t_mesh = time.perf_counter()
+    phase_train_mesh(mamba_run, phase_dryrun())
+    print(f"phases 30-31: {time.perf_counter() - t_mesh:.1f} s wall")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = {}

@@ -91,6 +91,17 @@ def rglru_bwd_plan(b: int, s: int, w: int, dtype) -> RglruPlan:
                      stages=stages, smem=stages * rows * CHANNELS * (item + 8))
 
 
+def rglru_flops(b: int, s: int, w: int) -> int:
+    """Operations of the scan: a multiply and an add a step and channel."""
+    return 2 * b * s * w
+
+
+def rglru_bwd_flops(b: int, s: int, w: int) -> int:
+    """Operations of its adjoint a step and channel: the carried adjoint's
+    multiply-add (lam_t = g_t + a_{t+1} lam_{t+1}) and da_t = lam_t h_{t-1}."""
+    return 3 * b * s * w
+
+
 def _check(a, b):
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"expected a and b of one shape (B,S,W); got "
@@ -102,6 +113,10 @@ def _check(a, b):
                          f"{a.dtype} and {b.dtype}")
     if b.device != a.device:
         raise ValueError("a and b must be on one device")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _aligned(t):
@@ -119,9 +134,19 @@ def rglru_scan(a, b):
     contiguous, 16-byte aligned operands (a view that starts inside its
     buffer is copied first), bfloat16 or float32 as given, with
     ``rglru_plan``'s slabs; any S >= 1. Raises ValueError for a W whose
-    rows are not a multiple of 16 bytes."""
+    rows are not a multiple of 16 bytes.
+
+    ``meta`` tensors (a dry run's shape-only trace) get an empty h and add
+    ``rglru_flops`` to ``rglru_scan.meta_flops`` and the bytes of a, b and
+    h to ``rglru_scan.meta_bytes``; nothing is computed."""
     if a.device.type == "cpu":
         return ref_rglru_scan(a, b)
+    if a.device.type == "meta":
+        _check(a, b)
+        rglru_scan.meta_flops += rglru_flops(*a.shape)
+        h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+        rglru_scan.meta_bytes += _nbytes(a, b, h)
+        return h
     if a.device.type != "cuda":
         raise ValueError(f"no RG-LRU scan for device {a.device}")
     fn = build.kernel_fn("rglru_scan", "rglru_scan", _ARGTYPES)
@@ -139,6 +164,8 @@ def rglru_scan(a, b):
 
 
 rglru_scan.launches = 0
+rglru_scan.meta_flops = 0
+rglru_scan.meta_bytes = 0
 
 
 def rglru_scan_bwd(a, h, g):
@@ -147,10 +174,19 @@ def rglru_scan_bwd(a, h, g):
 
     CPU tensors run the plain backward. CUDA tensors launch the backward
     kernel on contiguous, 16-byte aligned operands (h and g float32), with
-    ``rglru_bwd_plan``'s slabs."""
+    ``rglru_bwd_plan``'s slabs. ``meta`` tensors get empty outputs and add
+    ``rglru_bwd_flops`` and the bytes of a, h, g and the outputs to
+    ``rglru_scan_bwd.meta_flops`` and ``meta_bytes``."""
     if a.device.type == "cpu":
         da, db = ref_rglru_scan_bwd(a, h, g)
         return da.to(a.dtype), db.to(a.dtype)
+    if a.device.type == "meta":
+        _check(a, a)
+        rglru_scan_bwd.meta_flops += rglru_bwd_flops(*a.shape)
+        out = (torch.empty(a.shape, dtype=a.dtype, device=a.device),
+               torch.empty(a.shape, dtype=a.dtype, device=a.device))
+        rglru_scan_bwd.meta_bytes += _nbytes(a, h, g, *out)
+        return out
     if a.device.type != "cuda":
         raise ValueError(f"no RG-LRU scan backward for device {a.device}")
     fn = build.kernel_fn("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGTYPES)
@@ -174,6 +210,8 @@ def rglru_scan_bwd(a, h, g):
 
 
 rglru_scan_bwd.launches = 0
+rglru_scan_bwd.meta_flops = 0
+rglru_scan_bwd.meta_bytes = 0
 
 
 class RglruScanFn(torch.autograd.Function):
@@ -192,7 +230,7 @@ class RglruScanFn(torch.autograd.Function):
     def backward(ctx, g):
         a, h = ctx.saved_tensors
         da, db = rglru_scan_bwd(a, h, g)
-        return da, db.to(ctx.b_dtype)
+        return da.contiguous(), db.to(ctx.b_dtype).contiguous()
 
 
 def empty_launch(b: int, w: int, plan: RglruPlan, device) -> None:

@@ -45,6 +45,34 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
+# ------------------------------------------------------------ work counts
+def ssd_fwd_flops(b, s, h, p, n, chunk):
+    """Operations of the SSD forward on the causal half of each chunk: C.B^T
+    once a chunk (B and C are shared by the heads), and per head (W G) x,
+    the entering state's part of y and the state update."""
+    tri = chunk * (chunk + 1) // 2                 # causal (s, t) pairs of a chunk
+    return 2 * b * (s // chunk) * (tri * n + h * (tri * p + 2 * chunk * n * p))
+
+
+def ssd_bwd_work(b, s, h, p, n, chunk):
+    """Bytes and operations of the SSD backward: each input read once (x,
+    dt_a, B, C, the per-chunk states, dy, d final state) and each output
+    written once (dx, d dt_a, dB, dC); the multiply-adds the function needs
+    on the causal half of each chunk. Once a chunk, since B and C are shared
+    by the heads: G = C.B^T, and dB's and dC's intra-chunk products with the
+    heads' sum of W D. Per head: D = dy x^T, (W G)^T dy and four state-sized
+    products (dH B, x dH, dy H0, the carried dH); d dt_a's dy.(H0 C) term is
+    dy H0 dotted with C. Also returns the operations of a wider count, for
+    comparison with it: the W D products per head and H0 C a fifth
+    state-sized product."""
+    nc = s // chunk
+    elems = 3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n + (nc + 1) * b * h * p * n
+    tri = chunk * (chunk + 1) // 2
+    macs = b * nc * (3 * tri * n + h * (2 * tri * p + 4 * chunk * p * n))
+    wide = b * nc * (tri * n + h * (2 * tri * n + 2 * tri * p + 5 * chunk * p * n))
+    return 4 * elems, 2 * macs, 2 * wide
+
+
 # ------------------------------------------------------------ plain version
 def _segsum(x):
     """x: (..., T) -> (..., T, T) lower-triangular segment sums (else -1e30)."""
@@ -204,6 +232,10 @@ def p_slice(b: int, h: int, p: int, num_sms: int) -> int:
     return 16 if b * h * (p // 16) <= num_sms else 32
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def _aligned(t):
     """``t`` contiguous float32 at a 16-byte aligned address (the kernel
     copies rows with 16-byte cp.async and stores 16 bytes at a time)."""
@@ -246,11 +278,28 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
     kernel once, on operands cast to contiguous float32 as the plain
     version casts them (B and C come in the model's dtype): one CTA per
     (batch, head, ``p_slice`` rows of the state), the slices of a head one
-    cluster."""
+    cluster.
+
+    ``meta`` tensors (a dry run's shape-only trace) get empty outputs of
+    the kernel's shapes and dtypes; nothing is computed, and the kernel's
+    operations (``ssd_fwd_flops``) are added to ``ssd_scan.meta_flops``, and
+the bytes of its operands and outputs to ``ssd_scan.meta_bytes``."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt_a, b_mat, c_mat, chunk,
                            initial_state=initial_state,
                            return_all_states=return_all_states)
+    if x.device.type == "meta":
+        _check(x, dt_a, b_mat, c_mat, chunk, initial_state)
+        bsz, s, h, p = x.shape
+        n = b_mat.shape[-1]
+        ssd_scan.meta_flops += ssd_fwd_flops(bsz, s, h, p, n, chunk)
+        out = (torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device),
+               torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device))
+        if return_all_states:
+            out += (torch.empty((bsz, s // chunk, h, p, n), dtype=torch.float32,
+                                device=x.device),)
+        ssd_scan.meta_bytes += _nbytes(x, dt_a, b_mat, c_mat, initial_state, *out)
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"no SSD scan for device {x.device}")
     fn = build.kernel_fn("ssd_scan", "ssd_scan", _ARGTYPES)
@@ -280,6 +329,8 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
 
 
 ssd_scan.launches = 0
+ssd_scan.meta_flops = 0
+ssd_scan.meta_bytes = 0
 
 
 # ------------------------------------------------------------ the backward
@@ -328,9 +379,20 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
     ``ssd_bwd_plan``: the walk writes the adjoint of every chunk's final
     state into a (B,S/chunk,H,P,N) buffer, the chunk-parallel launch writes
     dx and d dt_a and each head group's dB and dC, and a third sums the
-    groups in a fixed order (bitwise-equal results run to run)."""
+    groups in a fixed order (bitwise-equal results run to run). ``meta``
+    tensors get empty outputs and add ``ssd_bwd_work``'s operations and
+    bytes to ``ssd_scan_bwd.meta_flops`` and ``meta_bytes``."""
     if x.device.type == "cpu":
         return ssd_chunked_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal)
+    if x.device.type == "meta":
+        _check(x, dt_a, b_mat, c_mat, chunk, None)
+        bsz, s, h, p = x.shape
+        n = b_mat.shape[-1]
+        nbytes, flops, _ = ssd_bwd_work(bsz, s, h, p, n, chunk)
+        ssd_scan_bwd.meta_flops += flops
+        ssd_scan_bwd.meta_bytes += nbytes
+        return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                     for shape in ((bsz, s, h, p), (bsz, s, h), (bsz, s, n), (bsz, s, n)))
     if x.device.type != "cuda":
         raise ValueError(f"no SSD scan backward for device {x.device}")
     fn = build.kernel_fn("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
@@ -364,6 +426,8 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.meta_flops = 0
+ssd_scan_bwd.meta_bytes = 0
 
 
 class SsdScanFn(torch.autograd.Function):
@@ -386,5 +450,7 @@ class SsdScanFn(torch.autograd.Function):
         x, dt_a, b_mat, c_mat, states = ctx.saved_tensors
         dx, dta, db, dc = ssd_scan_bwd(x, dt_a, b_mat, c_mat, ctx.chunk, states,
                                        dy, dfinal)
-        return (dx.to(x.dtype), dta.to(dt_a.dtype), db.to(b_mat.dtype),
-                dc.to(c_mat.dtype), None)
+        # contiguous, as the kernel writes them (the plain backward's are
+        # permuted), so that a mesh's shards of them read alike
+        return (dx.to(x.dtype).contiguous(), dta.to(dt_a.dtype).contiguous(),
+                db.to(b_mat.dtype).contiguous(), dc.to(c_mat.dtype).contiguous(), None)

@@ -2,7 +2,7 @@
 decode path and its caches.
 
 Ported from ``repro/models/model.py``: ``init``, ``_embed``, ``_logits``,
-``forward_train``, ``prefill``, ``decode_step``, and ``make_cache`` /
+``param_specs``, ``forward_train``, ``prefill``, ``decode_step``, and ``make_cache`` /
 ``pad_cache`` / ``cache_bytes`` for "attn" and "moe" (the ring of
 ``attn_cache_len`` slots), "ssm" and "rglru" layers. The serving engine runs attention stacks
 (dense and MoE) through ``TorchPagedRunner`` and state stacks (SSM and the
@@ -19,13 +19,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import (default_positions, dtype_of, embed_init,
+from repro_torch.models.common import (default_positions, dtype_of, embed_init, lookup,
                                        resolve_device, rms_norm, rope_angles)
+from repro_torch.models.hooks import constrain
 from repro_torch.models.rglru import rglru_width
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.params import tree_leaves, tree_map
 
 LONG_THRESHOLD = 1 << 18  # >= 256k context => sliding-window policy kicks in
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device: the initializers
+    create every tensor on ``gen.device``, and a meta ``randn`` takes a CPU
+    generator and draws nothing. (No generator of the meta device exists.)"""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 class Model:
@@ -56,9 +67,16 @@ class Model:
                                            self.dtype)
         return params
 
+    def param_specs(self):
+        """The tree ``init`` builds, as ``meta`` tensors of the same shapes,
+        dtypes and leaf names: ``init`` itself runs with a generator whose
+        device reads ``meta``, so nothing is drawn or allocated (the port of
+        JAX's ``jax.eval_shape`` of ``init``)."""
+        return self.init(_MetaGenerator())
+
     # ------------------------------------------------------------- helpers
     def _embed(self, params, tokens, mm_embeds=None):
-        h = params["embed"][tokens.long()]
+        h = lookup(params["embed"], tokens)
         if mm_embeds is not None and self.cfg.multimodal:
             # JAX's dynamic_update_slice at (0, 0, 0): the projected frames
             # replace the first rows and positions of the embeddings
@@ -68,12 +86,12 @@ class Model:
                 raise ValueError(f"conditioning frames {tuple(fused.shape[:2])} do "
                                  f"not fit the tokens {tuple(h.shape[:2])}")
             h[:bm, :length] = fused          # a gathered copy: the table is untouched
-        return h
+        return constrain(h, ("batch", None, None))
 
     def _logits(self, params, h):
         h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return h @ w
+        return constrain(h @ w, ("batch", None, "vocab"))
 
     def _rope(self, positions):
         cfg = self.cfg

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, swiglu, swiglu_init
+from repro_torch.models.hooks import constrain
 
 GROUP = 256
 
@@ -83,6 +84,7 @@ def moe_apply(params, cfg, x):
         xt = torch.cat([xt, xt.new_zeros((pad, d))], dim=0)
     n = xt.shape[0] // group
     xg = xt.reshape(n, group, d)
+    xg = constrain(xg, ("batch", None, None))
 
     logits = xg.float() @ params["router"]                          # (n,G,E)
     gates = torch.softmax(logits, dim=-1)
@@ -94,8 +96,10 @@ def moe_apply(params, cfg, x):
 
     # "ngec,ngd->necd": (n, E*C, G) @ (n, G, d), then experts leading
     expert_in = dispatch.reshape(n, group, e * capacity).transpose(1, 2) @ xg
-    expert_in = expert_in.reshape(n, e, capacity, d).transpose(0, 1) \
-        .reshape(e, n * capacity, d)
+    # laid out experts first, (E, n, C, d), where JAX's is (n, E, C, d)
+    expert_in = constrain(expert_in.reshape(n, e, capacity, d).transpose(0, 1),
+                          ("experts", "batch", None, None))
+    expert_in = expert_in.reshape(e, n * capacity, d)
     # "necd,edf->necf" twice and "necf,efd->necd": (E, n*C, .) @ the weight
     h = F.silu(expert_in @ params["we1"]) * (expert_in @ params["we3"])
     expert_out = (h @ params["we2"]).reshape(e, n, capacity, d).transpose(0, 1)

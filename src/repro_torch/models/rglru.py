@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import channel_conv, dense_init, time_pad
 
 C_FACTOR = 8.0
 
@@ -48,6 +48,13 @@ def rglru_init(gen: torch.Generator, cfg, dtype, lead=()):
     }
 
 
+def _conv(xa, w, b, s):
+    """The causal depthwise convolution of xa (B,S,W) by w (K,W) and b (W,)."""
+    k = w.shape[0]
+    xa_pad = F.pad(xa, (0, 0, k - 1, 0))
+    return sum(xa_pad[:, i: i + s] * w[i][None, None] for i in range(k)) + b[None, None]
+
+
 def _gates(params, x32):
     r = torch.sigmoid(x32 * params["wr"] + params["br"])
     i = torch.sigmoid(x32 * params["wi"] + params["bi"])
@@ -62,9 +69,7 @@ def rglru_context(params, cfg, x, *, return_cache=False):
     bsz, s, _ = x.shape
     xa = x @ params["wx"]                                    # (B,S,W)
     k = params["conv_w"].shape[0]
-    xa_pad = F.pad(xa, (0, 0, k - 1, 0))
-    conv = sum(xa_pad[:, i: i + s] * params["conv_w"][i][None, None]
-               for i in range(k)) + params["conv_b"][None, None]
+    conv = channel_conv(_conv, xa, params["conv_w"], params["conv_b"], s)
 
     a, b = _gates(params, conv.float())                      # (B,S,W) each
     h = kops.rglru_scan(a, b)
@@ -72,7 +77,7 @@ def rglru_context(params, cfg, x, *, return_cache=False):
     out = (h.to(x.dtype) * gate) @ params["wo"]
     cache = None
     if return_cache:
-        cache = {"conv": xa_pad[:, -k:].to(x.dtype), "h": h[:, -1]}
+        cache = {"conv": time_pad(xa, k)[:, -k:].to(x.dtype), "h": h[:, -1]}
     return out, cache
 
 

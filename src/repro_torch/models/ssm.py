@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import channel_conv, dense_init, rms_norm, time_pad
+from repro_torch.models.hooks import constrain
 
 
 def ssm_dims(cfg):
@@ -66,7 +67,9 @@ def _postprocess(params, cfg, y, x_in, z):
     d_inner, _ = ssm_dims(cfg)
     y = y + params["D"][None, None, :, None].float() * x_in.float()
     y = y.reshape(*y.shape[:-2], d_inner).to(z.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    # the norm spans d_inner, whose channels a mesh may shard
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps,
+                 stat_axes=("batch", None, None))
     return y @ params["out_proj"]
 
 
@@ -108,11 +111,12 @@ def ssm_context(params, cfg, x, *, return_cache=False, initial=None,
         conv_bc = _causal_conv_with_state(bc, params["conv_bc"],
                                           params["conv_bc_b"], s, init_bc)
     else:
-        conv_x = _causal_conv(xs, params["conv_x"], params["conv_x_b"], s)
-        conv_bc = _causal_conv(bc, params["conv_bc"], params["conv_bc_b"], s)
+        conv_x = channel_conv(_causal_conv, xs, params["conv_x"], params["conv_x_b"], s)
+        conv_bc = channel_conv(_causal_conv, bc, params["conv_bc"], params["conv_bc_b"], s)
     x_in = conv_x.reshape(bsz, s, nheads, cfg.ssm_head_dim)
     b_mat = conv_bc[..., :n]
     c_mat = conv_bc[..., n:]
+    x_in = constrain(x_in, ("batch", None, "heads", None))
 
     dt = F.softplus(dt.float() + params["dt_bias"][None, None])
     a = -torch.exp(params["A_log"])                          # (H,)
@@ -137,12 +141,14 @@ def ssm_context(params, cfg, x, *, return_cache=False, initial=None,
     if pad:
         y = y[:, :s]
     out = _postprocess(params, cfg, y, x_in, z)
+    if not (return_cache or boundary_states):
+        return out, None
     xbc = torch.cat([xs, bc], dim=-1)                     # raw conv inputs
     if initial is not None:
         xbc_full = torch.cat(
             [initial["conv"][:, -(k - 1):].to(xbc.dtype), xbc], dim=1)
     else:
-        xbc_full = F.pad(xbc, (0, 0, k - 1, 0))
+        xbc_full = time_pad(xbc, k)
     cache = None
     if return_cache:
         cache = {"conv": xbc_full[:, -k:].to(x.dtype),

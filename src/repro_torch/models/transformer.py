@@ -16,6 +16,7 @@ experts (``repro_torch/models/moe.py``) in place of the SwiGLU MLP.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
@@ -23,6 +24,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm, swiglu, swiglu_init
+from repro_torch.models.hooks import constrain
 from repro_torch.params import tree_map
 
 
@@ -76,6 +78,16 @@ def ffn(kind, p, cfg, x):
     return moe_mod.moe_apply(p["moe"], cfg, x)
 
 
+def _stream(h):
+    """A sublayer's output as it joins the residual stream: sharded on the
+    batch only. Under a mesh this sums a row-parallel product's partial
+    results (Megatron's all-reduce); left to itself DTensor would
+    reduce-scatter them onto the sequence dim, and flattening a (B, S)
+    sharded on both for the next product makes strided shards. Without a
+    hook, ``h`` as it is."""
+    return constrain(h, ("batch", None, None))
+
+
 def _attn_window(cfg):
     return cfg.window if cfg.block_pattern else 0
 
@@ -87,19 +99,19 @@ def block_context(kind, p, cfg, x, rope, *, seq_lens=None, return_cache=False):
         h, cache = attn_mod.attn_context(
             p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin,
             window=_attn_window(cfg), seq_lens=seq_lens, return_cache=return_cache)
-        x = x + h
-        return x + ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        x = x + _stream(h)
+        return x + _stream(ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))), cache
     if kind == "ssm":
         h, cache = ssm_mod.ssm_context(
             p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps),
             return_cache=return_cache)
-        return x + h, cache
+        return x + _stream(h), cache
     if kind == "rglru":
         h, cache = rglru_mod.rglru_context(
             p["rglru"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
             return_cache=return_cache)
-        x = x + h
-        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        x = x + _stream(h)
+        return x + _stream(swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))), cache
     raise ValueError(kind)
 
 
@@ -109,17 +121,17 @@ def block_decode(kind, p, cfg, x, rope, cache, pos):
     if kind in ("attn", "moe"):
         h, cache = attn_mod.attn_decode(
             p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin, cache, pos)
-        x = x + h
-        return x + ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        x = x + _stream(h)
+        return x + _stream(ffn(kind, p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps))), cache
     if kind == "ssm":
         h, cache = ssm_mod.ssm_decode(p["ssm"], cfg,
                                       rms_norm(x, p["ln"], cfg.norm_eps), cache)
-        return x + h, cache
+        return x + _stream(h), cache
     if kind == "rglru":
         h, cache = rglru_mod.rglru_decode(
             p["rglru"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), cache)
-        x = x + h
-        return x + swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), cache
+        x = x + _stream(h)
+        return x + _stream(swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))), cache
     raise ValueError(kind)
 
 
@@ -162,6 +174,21 @@ def stack_layers(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def _layers_whole(p):
+    """A stacked leaf whose layer axis is sharded (a rule for a
+    three-dimensional weight met a stack of two-dimensional ones whose
+    depth the mesh axis divides, as in the reference) gathered on that
+    axis, so that a layer can be taken out; anything else as it is."""
+    if isinstance(p, DTensor) and Shard(0) in p.placements:
+        return p.redistribute(p.device_mesh, [Replicate() if q == Shard(0) else q
+                                              for q in p.placements])
+    return p
+
+
+def _layer(p, i):
+    return tree_map(lambda a: _layers_whole(a)[i], p)
+
+
 def _unbind_layers(p, n):
     """The n layers of a stacked parameter dict, each leaf split once by
     ``torch.unbind``: its backward stacks the n layers' gradients once,
@@ -170,7 +197,7 @@ def _unbind_layers(p, n):
     if isinstance(p, dict):
         parts = {k: _unbind_layers(v, n) for k, v in p.items()}
         return [{k: parts[k][i] for k in p} for i in range(n)]
-    return p.unbind(0)
+    return _layers_whole(p).unbind(0)
 
 
 def _unit(unit, layer_ps, cfg, x, rope):
@@ -188,6 +215,8 @@ def _stack_train(params_segs, cfg, x, rope):
     for (stype, unit, n), seg_p in zip(segments(cfg), params_segs):
         if stype == "unroll":
             x = _unit(unit, seg_p, cfg, x, rope)
+            continue
+        if n == 0:
             continue
         layers = [_unbind_layers(p_k, n) for p_k in seg_p]
         for i in range(n):
@@ -212,7 +241,7 @@ def stack_context(params_segs, cfg, x, rope, *, train=False, seq_lens=None,
         for i in range(n if stype == "scan" else 1):
             for j, (kind, p_k) in enumerate(zip(unit, seg_p)):
                 if stype == "scan":
-                    p_k = tree_map(lambda a: a[i], p_k)
+                    p_k = _layer(p_k, i)
                 x, c = block_context(kind, p_k, cfg, x, rope, seq_lens=seq_lens,
                                      return_cache=return_cache)
                 outs[j].append(c)
@@ -241,8 +270,8 @@ def stack_decode(params_segs, cfg, x, rope, caches, pos):
             outs = [[] for _ in unit]
             for i in range(n):
                 for j, (kind, p_k, c_k) in enumerate(zip(unit, seg_p, seg_c)):
-                    x, c = block_decode(kind, tree_map(lambda a: a[i], p_k), cfg,
-                                        x, rope, tree_map(lambda a: a[i], c_k), pos)
+                    x, c = block_decode(kind, _layer(p_k, i), cfg, x, rope,
+                                        _layer(c_k, i), pos)
                     outs[j].append(c)
             seg_new = tuple(stack_layers(o) for o in outs)
         else:

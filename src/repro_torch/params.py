@@ -20,6 +20,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_with_names(fn, tree, names=()):
+    """Apply ``fn(names, leaf)`` to every leaf, with ``names`` the dict keys
+    on the path to it (list and tuple positions left out), as the JAX
+    package reads a leaf's path for its sharding rules."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_names(fn, v, names + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_names(fn, v, names) for v in tree)
+    return fn(names, tree)
+
+
 def tree_leaves(tree):
     """Leaves in JAX's order (dict keys sorted), so that they line up with
     ``jax.tree.leaves`` of the same tree."""

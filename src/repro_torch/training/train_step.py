@@ -8,8 +8,10 @@ update is the in-place AdamW of ``repro_torch.training.optimizer``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import resolve_device
+from repro_torch.models.hooks import constrain
 from repro_torch.models.model import Model
 from repro_torch.params import tree_leaves, tree_unflatten
 from repro_torch.training.optimizer import adamw_update, cosine_lr
@@ -20,8 +22,11 @@ def loss_fn(model: Model, params, tokens, labels, mm_embeds=None):
     logits = model.forward_train(params, tokens, mm_embeds=mm_embeds).float()
     logz = torch.logsumexp(logits, dim=-1)
     mask = labels >= 0
-    gold = torch.take_along_dim(
-        logits, torch.where(mask, labels, 0).long()[..., None], dim=-1)[..., 0]
+    # under a mesh the gold logits, gathered from vocab shards, are summed
+    # over the vocab ranks here
+    gold = constrain(torch.take_along_dim(
+        logits, torch.where(mask, labels, 0).long()[..., None], dim=-1),
+        ("batch", None, None))[..., 0]
     nll = logz - gold
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
 
@@ -35,7 +40,9 @@ def loss_and_grads(model: Model, params, batch):
     loss = loss_fn(model, tree_unflatten(params, leaves), batch["tokens"],
                    batch["labels"], batch.get("mm_embeds"))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return loss.detach(), list(grads)
+    # under a mesh the loss is a sum pending over the batch ranks: the value
+    # returned is summed there (the gradient already flowed from the pending sum)
+    return constrain(loss.detach(), ()), list(grads)
 
 
 def make_train_step(model: Model, *, peak_lr: float = 3e-4,
@@ -46,13 +53,16 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
 
     ``batch`` = {"tokens": (B,S), "labels": (B,S)} (+ "mm_embeds" for
     multimodal configs), numpy arrays or tensors, moved to ``device``
-    (``cuda`` unless the caller asks for the CPU; raises without a card).
+    (``cuda`` unless the caller asks for the CPU; raises without a card);
+    DTensors (a batch distributed over a mesh, with the parameters and the
+    optimizer state) are taken as they are.
     ``metrics``: the loss and the gradient norm as 0-d tensors, the
     learning rate of the step as a float."""
     dev = resolve_device(device)
 
     def train_step(params, opt_state, batch):
-        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        b = {k: v if isinstance(v, DTensor) else torch.as_tensor(v).to(dev)
+             for k, v in batch.items()}
         loss, grads = loss_and_grads(model, params, b)
         lr = cosine_lr(opt_state.step, peak=peak_lr, warmup=warmup,
                        total=total_steps)

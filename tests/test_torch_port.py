@@ -235,6 +235,10 @@ def test_dispatch_has_no_plain_route(monkeypatch, impl, exc):
 
 
 def test_non_cpu_non_cuda_device_raises():
+    """The attention kernels take no meta tensor. The scans' meta route is
+    shape-only (tests/test_torch_multidevice.py) and still checks shapes;
+    any other device raises."""
+    import types
     q = torch.empty((1, 4, 16), device="meta")
     with pytest.raises(ValueError):
         pa_mod.paged_attention_splitk(q, q, q, q, q)
@@ -245,7 +249,12 @@ def test_non_cpu_non_cuda_device_raises():
     with pytest.raises(ValueError):
         pa_mod.paged_attention(q, q, q, q, q)
     with pytest.raises(ValueError):
-        rglru_mod.rglru_scan(q, q)
+        rglru_mod.rglru_scan(q, q[:, :3])
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError):
+        rglru_mod.rglru_scan(other, other)
+    with pytest.raises(ValueError):
+        ssd_mod.ssd_scan(other, other, other, other, chunk=4)
 
 
 def test_port_module_list_covers_the_state_path():
