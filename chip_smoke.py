@@ -182,18 +182,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      at full width: mamba2-1.3b, qwen3-4b and qwen3-moe-30b-a3b at
      train_4k and decode_32k on the single-pod mesh, side by side; each
      record's per-rank bytes, ``fits_80gb`` against the card's memory,
-     collectives and trace time, failing on any record not ``ok``; and the
-     dry run's count of phase 31's step on a (1, 1) mesh;
+     collectives and trace time, and its peak a rank (the arguments plus
+     ``temp_bytes``, the live-bytes peak of the traced step), failing on
+     any record not ``ok`` or without a positive ``temp_bytes``; the dry
+     run's counts of three steps on a (1, 1) mesh: phase 31's training
+     step and its 128-token prefill (mamba2-1.3b), and phase 27's
+     training step (qwen3-4b), whose peak must lie within PEAK_RTOL (5%)
+     of the card's ``torch.cuda.max_memory_allocated()`` over phase 27's
+     steps, less what earlier phases left allocated;
  31. phase 25's run again on a (data 1, model 1) ``DeviceMesh`` over an
      NCCL process group of one rank (a ``HashStore``, no network), with the
      logical-axis hook installed: full-width mamba2-1.3b distributed by
      ``param_shardings`` with ZeRO-1 moments, 12 steps whose losses and
      gradient norms must equal phase 25's bitwise, the SSD forward and
      backward kernels launched through ``local_map`` (96 and 48 a step, in
-     the counters and in a profiled step's trace), peak memory at least
-     the dry run's per-rank bytes; then ``Model.prefill`` of a 128-token
-     prompt and 8 greedy decode steps on the mesh, whose tokens must equal
-     the unsharded path's on the same weights; the group destroyed after.
+     the counters and in a profiled step's trace), the card's peak memory
+     over the 12 steps within PEAK_RTOL of the dry run's peak for the same
+     step; then ``Model.prefill`` of a 128-token prompt, with the moments
+     freed, its peak within PEAK_RTOL of the dry run's, and 8 greedy decode
+     steps on the mesh, whose tokens must equal the unsharded path's on the
+     same weights; the group destroyed after.
 
 A profile's figures come from a trace that holds the device record of every
 launch, copy and memset of the step: the profiler at times drops the first
@@ -346,12 +354,17 @@ R_TRAIN_LAYERS = 14
 TRAIN_STEPS_PARITY, PARITY_BATCH, PARITY_SEQ = 3, 2, 32
 # phases 30-31, the multi-device layer: the dry run's set at full width on
 # the single-pod mesh (one subprocess each, side by side, with the (1, 1)
-# mesh's count for phase 31 beside them) and its time limit; phase 31's
-# prompt and decode steps after its training steps
+# mesh's counts of MESH_STEPS beside them) and its time limit; phase 31's
+# prompt and decode steps after its training steps; and how far the dry
+# run's peak a rank may lie from the card's measured peak for one step
 DRYRUN_SET = [(a, s) for a in ("mamba2-1.3b", "qwen3-4b", "qwen3-moe-30b-a3b")
               for s in ("train_4k", "decode_32k")]
 DRYRUN_TIMEOUT = 600
 MESH_PROMPT, MESH_DECODE = 128, 8
+MESH_STEPS = {"mamba2 train": ("mamba2-1.3b", TRAIN_SEQ, "train"),
+              "mamba2 prefill": ("mamba2-1.3b", MESH_PROMPT, "prefill"),
+              "qwen3 train": ("qwen3-4b", TRAIN_SEQ, "train")}
+PEAK_RTOL = 0.05
 
 
 def check(cond, msg):
@@ -1597,6 +1610,7 @@ def _free_card(what):
     held = torch.cuda.memory_allocated()
     print(f"  before {what}: {held / 2**20:.1f} MiB allocated on the card")
     check(held < 1 << 30, f"{held} B still allocated before {what}")
+    return held
 
 
 def _nbytes(tree):
@@ -2700,8 +2714,10 @@ def _train_full_width(cfg, ours, hold_bf16=True):
     or is not held), the first step's (loss, gradient norm) through the
     kernels and through the plain scans, and the run: every step's loss and
     gradient norm, the step wall, the peak memory, and the profiled step's
-    device busy ms and device records."""
-    _free_card(f"training {cfg.name}")
+    device busy ms and device records, and the bytes allocated before the
+    run (``left``, by earlier phases) and when the peak count was reset
+    (``base``)."""
+    left = _free_card(f"training {cfg.name}")
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(0))
@@ -2723,6 +2739,7 @@ def _train_full_width(cfg, ours, hold_bf16=True):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for _, reset in counts.values():
         reset()
     losses, gnorms, walls = [], [], []
@@ -2761,7 +2778,7 @@ def _train_full_width(cfg, ours, hold_bf16=True):
     batch = batches[-1]
     by_name = _train_profile(lambda: step(params, opt, batch), wall * 1e3, ours)
     del model, params, opt, step
-    run = dict(losses=losses, gnorms=gnorms, wall=wall, peak=peak,
+    run = dict(losses=losses, gnorms=gnorms, wall=wall, peak=peak, left=left, base=base,
                busy=sum(t for t, _ in by_name.values()),
                launches=sum(n for _, n in by_name.values()))
     return seen, by_name, plain if hold_bf16 else None, first, run
@@ -2849,11 +2866,12 @@ def phase_train_hybrid():
 
 
 def phase_train_qwen():
-    """Returns the plain-scan comparison's finding."""
+    """Returns the plain-scan comparison's finding and the run (for phase
+    30's memory comparison)."""
     phase("27 train qwen3-4b at full width")
-    seen, _, plain, _, _ = _train_full_width(get_config("qwen3-4b"), ("none of ours",))
+    seen, _, plain, _, run = _train_full_width(get_config("qwen3-4b"), ("none of ours",))
     check(not any(seen.values()), f"qwen3-4b's training launched scan kernels: {seen}")
-    return plain
+    return plain, run
 
 
 def _tiny_train_run(cfg, params, device):
@@ -2963,29 +2981,52 @@ def _full(t):
 
 
 _MESH_COUNT = """
-import json
+import json, time
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
+t0 = time.perf_counter()
 with dryrun.fake_world(1):
     mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
-    m = dryrun.measure(get_config("mamba2-1.3b"), InputShape("train_4k", {seq}, 1, "train"),
-                       mesh)
-print(json.dumps(m["per_rank_bytes"]))
+    m = dryrun.measure(get_config({arch!r}), InputShape("mesh", {seq}, 1, {kind!r}), mesh)
+out = {{k: m[k] for k in ("per_rank_bytes", "argument_bytes", "temp_bytes", "output_bytes")}}
+out["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
 """
 
 
-def phase_dryrun():
-    """Returns phase 31's per-rank bytes: the dry run's count of
-    mamba2-1.3b's training step at B 1 on a (1, 1) mesh."""
+def _hold_peak(what, count, peak, left, base):
+    """The dry run's peak a rank for a step (its arguments plus
+    ``temp_bytes``) against the card's for the same step: ``peak``
+    (``torch.cuda.max_memory_allocated()`` over it) less ``left``, what
+    earlier phases left allocated; ``base``, allocated when the peak count
+    was reset, is printed beside. Fails beyond PEAK_RTOL."""
+    dry = count["argument_bytes"] + count["temp_bytes"]
+    card = peak - left
+    gap = dry / card - 1
+    print(f"  {what}: the dry run's peak {dry / 1e9:.3f} GB a rank (arguments "
+          f"{count['argument_bytes'] / 1e9:.3f} + temp_bytes {count['temp_bytes'] / 1e9:.3f}"
+          f"; output_bytes {count['output_bytes'] / 1e9:.3f}) against the card's "
+          f"{card / 1e9:.3f} GB (max_memory_allocated {peak / 1e9:.3f} less {left / 1e9:.3f} "
+          f"left by earlier phases; {(base - left) / 1e9:.3f} allocated at the start): "
+          f"{dry - card:+,} B, {gap:+.2%} (bound {PEAK_RTOL:.0%})")
+    check(abs(gap) <= PEAK_RTOL, f"{what}: the dry run's peak {dry} B lies {gap:+.2%} from "
+          f"the card's {card} B")
+
+
+def phase_dryrun(qwen_run):
+    """Holds phase 27's peak (``qwen_run``) against the dry run's count of
+    the same step on a (1, 1) mesh. Returns the (1, 1) mesh's counts of
+    MESH_STEPS, for phase 31."""
     phase("30 the production dry run at full width (fake process group, on the host)")
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as out:
         cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
                  "--out", out] for a, s in DRYRUN_SET]
-        cmds.append([sys.executable, "-c", _MESH_COUNT.format(seq=TRAIN_SEQ)])
+        cmds += [[sys.executable, "-c", _MESH_COUNT.format(arch=a, seq=n, kind=k)]
+                 for a, n, k in MESH_STEPS.values()]
         t0 = time.perf_counter()
         procs = [subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True) for c in cmds]
@@ -2996,34 +3037,50 @@ def phase_dryrun():
                 p.kill()
         wall = time.perf_counter() - t0
         for c, (stdout, stderr, rc) in zip(cmds, results):
-            check(rc == 0, f"{' '.join(c[1:4])} failed: {stdout[-2000:]}{stderr[-2000:]}")
+            check(rc == 0, f"{' '.join(c[1:4])[:200]} failed: {stdout[-2000:]}{stderr[-2000:]}")
         recs = [json.loads(f.read_text()) for f in sorted(Path(out).glob("*.json"))]
     check(len(recs) == len(DRYRUN_SET), f"{len(recs)} dry-run records of {len(DRYRUN_SET)}")
-    print(f"  {len(recs)} combinations on pod16x16 (256 ranks), one process each, side by "
-          f"side: {wall:.1f} s wall; {_smi()}")
+    print(f"  {len(recs)} combinations on pod16x16 (256 ranks) and {len(MESH_STEPS)} steps on a "
+          f"(1, 1) mesh, one process each, side by side: {wall:.1f} s wall; {_smi()}")
     for r in recs:
         check(r["ok"], f"dry run {r['arch']} x {r['shape']}: {r.get('error')}")
-        b, c, rf = r["per_rank_bytes"], r["collectives"], r["roofline"]
+        b, c, rf, mem = r["per_rank_bytes"], r["collectives"], r["roofline"], r["memory"]
+        check(isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+              and isinstance(mem["output_bytes"], int),
+              f"dry run {r['arch']} x {r['shape']}: memory {mem}")
         ops_ = ", ".join(f"{k} {c[k] / 1e9:.3f}" for k in ("all-reduce", "all-gather",
                                                         "reduce-scatter", "all-to-all"))
         print(f"  {r['arch']} x {r['shape']}: per rank params {b['params'] / 1e9:.3f} GB, "
               f"grads {b['grads'] / 1e9:.3f}, moments {b['moments'] / 1e9:.3f}, inputs "
-              f"{b['inputs'] / 1e9:.3f}, total {b['total'] / 1e9:.3f} GB, fits_80gb "
-              f"{r['fits_80gb']} (card {r['device_memory_bytes'] / 1e9:.2f} GB); "
+              f"{b['inputs'] / 1e9:.3f}, total {b['total'] / 1e9:.3f} GB; peak "
+              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.3f} GB (arguments "
+              f"{mem['argument_bytes'] / 1e9:.3f} + temp_bytes {mem['temp_bytes'] / 1e9:.3f}; "
+              f"output_bytes {mem['output_bytes'] / 1e9:.3f}), fits_80gb {r['fits_80gb']} "
+              f"(card {r['device_memory_bytes'] / 1e9:.2f} GB); "
               f"{r['flops']:.4e} flops, {r['bytes_accessed']:.4e} B accessed; collectives "
               f"{c['count']} ops, {c['total'] / 1e9:.3f} GB ({ops_}); roofline compute "
               f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, collective >= "
               f"{rf['collective_s']:.4f} s ({rf['dominant']}); traced in {r['wall_s']:.1f} s")
-    mesh_bytes = json.loads(results[-1][0].splitlines()[-1])
-    print(f"  mamba2-1.3b train at B 1, S {TRAIN_SEQ} on a (1, 1) mesh: "
-          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in mesh_bytes.items()))
-    return mesh_bytes
+    counts = {what: json.loads(res[0].splitlines()[-1])
+              for what, res in zip(MESH_STEPS, results[len(DRYRUN_SET):])}
+    for what, m in counts.items():
+        arch, seq, kind = MESH_STEPS[what]
+        print(f"  {arch} {kind} at B 1, S {seq} on a (1, 1) mesh: "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in m["per_rank_bytes"].items())
+              + f"; temp_bytes {m['temp_bytes'] / 1e9:.3f} GB, output_bytes "
+              f"{m['output_bytes'] / 1e9:.3f} GB; traced in {m['wall_s']:.1f} s")
+    _hold_peak("qwen3-4b's training step (phase 27, no mesh)", counts["qwen3 train"],
+               qwen_run["peak"], qwen_run["left"], qwen_run["base"])
+    return counts
 
 
-def _greedy(model, params, prompt, pos_like):
+def _greedy(model, params, prompt, pos_like, peaks=None):
     """The prefill's token and MESH_DECODE greedy decode steps' tokens, and
-    the logits of each."""
+    the logits of each; the card's peak memory right after the prefill is
+    appended to ``peaks`` where it is given."""
     logits, cache = model.prefill(params, prompt)
+    if peaks is not None:
+        peaks.append(torch.cuda.max_memory_allocated())
     cur = torch.argmax(logits, dim=-1)
     out, seen = [int(_full(cur)[0])], [_full(logits)]
     for i in range(MESH_DECODE):
@@ -3034,9 +3091,11 @@ def _greedy(model, params, prompt, pos_like):
     return out, seen
 
 
-def phase_train_mesh(mamba_run, mesh_bytes):
+def phase_train_mesh(mamba_run, counts):
     """Phase 25's training run again, distributed over a (data 1, model 1)
-    ``DeviceMesh`` on the card with the logical-axis hook installed."""
+    ``DeviceMesh`` on the card with the logical-axis hook installed; its
+    peak memory and its prefill's held against the dry run's ``counts``
+    (phase 30's)."""
     phase("31 train mamba2-1.3b at full width on a (data 1, model 1) DeviceMesh "
           "(NCCL, one rank)")
     import torch.distributed as dist
@@ -3044,7 +3103,7 @@ def phase_train_mesh(mamba_run, mesh_bytes):
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
-    _free_card("training on the mesh")
+    left = _free_card("training on the mesh")
     cfg = get_config("mamba2-1.3b")
     model = Model(cfg)
     routed, inner = [0], ops._dtensor_ssd_scan
@@ -3069,11 +3128,12 @@ def phase_train_mesh(mamba_run, mesh_bytes):
               f"{sum(isinstance(t, DTensor) for t in tree_leaves(opt.m))} ZeRO-1 moments; "
               f"{_smi()}")
         step = make_train_step(model, total_steps=TRAIN_STEPS, device=DEV)
-        counts = _scan_counts()
+        scans = _scan_counts()
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for _, reset in counts.values():
+        base = torch.cuda.memory_allocated()
+        for _, reset in scans.values():
             reset()
         losses, gnorms, walls = [], [], []
         with sharding.on_mesh(mesh):
@@ -3085,7 +3145,7 @@ def phase_train_mesh(mamba_run, mesh_bytes):
                 walls.append(time.perf_counter() - t0)
                 print(f"  step {i:2d}: loss {losses[-1]:.4f} gnorm {gnorms[-1]:.4f} wall "
                       f"{walls[-1]:.3f} s")
-        seen = {k: get() for k, (get, _) in counts.items()}
+        seen = {k: get() for k, (get, _) in scans.items()}
         peak = torch.cuda.max_memory_allocated()
         wall = statistics.mean(walls[2:])
         n = cfg.num_layers * TRAIN_STEPS
@@ -3097,16 +3157,15 @@ def phase_train_mesh(mamba_run, mesh_bytes):
               f"gradient norms of all {TRAIN_STEPS} steps {'bitwise equal' if same else 'DIFFER'}"
               f"; step wall {wall:.3f} s vs {mamba_run['wall']:.3f} s "
               f"({wall / mamba_run['wall'] - 1:+.1%}); peak memory {peak / 1e9:.2f} GB vs "
-              f"{mamba_run['peak'] / 1e9:.2f} GB, at least the dry run's "
-              f"{mesh_bytes['total'] / 1e9:.2f} GB a rank")
+              f"{mamba_run['peak'] / 1e9:.2f} GB")
         check(same, f"the mesh's steps differ from phase 25's: losses {losses} vs "
               f"{mamba_run['losses']}, gradient norms {gnorms} vs {mamba_run['gnorms']}")
         check(seen["ssd_scan"] == 2 * n and seen["ssd_scan_bwd"] == n and routed[0] == 2 * n,
               f"{TRAIN_STEPS} steps should launch the SSD forward {2 * n} times through "
               f"local_map and its backward {n} times: {seen}, routed {routed[0]}")
         check(seen["plain"] == 0, f"{seen['plain']} plain scan calls on the card")
-        check(peak >= mesh_bytes["total"], f"peak memory {peak} B under the dry run's "
-              f"per-rank {mesh_bytes['total']} B")
+        _hold_peak(f"mamba2-1.3b's training step on the mesh ({TRAIN_STEPS} steps)",
+                   counts["mamba2 train"], peak, left, base)
 
         def profiled():
             with sharding.on_mesh(mesh):
@@ -3123,16 +3182,25 @@ def phase_train_mesh(mamba_run, mesh_bytes):
               and all(per_kernel[k] == cfg.num_layers for k in SSD_BWD_KERNELS),
               f"the profiled step's trace does not show the SSD kernels' launches: {per_kernel}")
 
+        # the prefill's arguments are the weights and the prompt: the
+        # training run's moments and batches go first
+        del opt, batches, step, met
+        gc.collect()
+        torch.cuda.empty_cache()
         gen = torch.Generator(device=DEV).manual_seed(5)
         prompt = torch.randint(0, cfg.vocab_size, (1, MESH_PROMPT), device=DEV, generator=gen)
         _, pl = sharding.input_specs(cfg, InputShape("p", MESH_PROMPT, 1, "prefill"), mesh)
-        before = ssd_scan.launches
+        tokens = sharding.distribute({"tokens": prompt}, pl, mesh)["tokens"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before, peaks = ssd_scan.launches, []
         with torch.no_grad(), sharding.on_mesh(mesh):
-            got, got_logits = _greedy(model, params, sharding.distribute({"tokens": prompt}, pl, mesh)
-                          ["tokens"], lambda cur, p: DTensor.from_local(
-                              torch.full((1,), p, dtype=torch.int32, device=DEV), mesh,
-                              cur.placements, run_check=False))
+            got, got_logits = _greedy(model, params, tokens, lambda cur, p: DTensor.from_local(
+                torch.full((1,), p, dtype=torch.int32, device=DEV), mesh, cur.placements,
+                run_check=False), peaks)
         prefill_launches = ssd_scan.launches - before
+        _hold_peak(f"mamba2-1.3b's {MESH_PROMPT}-token prefill on the mesh",
+                   counts["mamba2 prefill"], peaks[0], left, base)
         plain = tree_map(_full, params)
         with torch.no_grad():
             want, want_logits = _greedy(
@@ -3145,7 +3213,7 @@ def phase_train_mesh(mamba_run, mesh_bytes):
         check(got == want, f"the mesh's tokens {got} differ from the unsharded {want}")
         check(prefill_launches == cfg.num_layers,
               f"the prefill on the mesh launched the SSD kernel {prefill_launches} times")
-        del params, opt, plain, batches, step
+        del params, plain
     finally:
         ops._dtensor_ssd_scan = inner
         dist.destroy_process_group()
@@ -3184,12 +3252,12 @@ def main():
     rows += phase_backward_kernels(gen)
     launches["ssd_scan_bwd"], plain_mamba, mamba_run = phase_train_mamba()
     launches["rglru_scan_bwd"], plain_hybrid = phase_train_hybrid()
-    plain_qwen = phase_train_qwen()
+    plain_qwen, qwen_run = phase_train_qwen()
     phase_train_parity()
     phase_train_cli()
     print(f"phases 24-29: {time.perf_counter() - t_train:.1f} s wall")
     t_mesh = time.perf_counter()
-    phase_train_mesh(mamba_run, phase_dryrun())
+    phase_train_mesh(mamba_run, phase_dryrun(qwen_run))
     print(f"phases 30-31: {time.perf_counter() - t_mesh:.1f} s wall")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -136,25 +136,25 @@ def rglru_scan(a, b):
     ``rglru_plan``'s slabs; any S >= 1. Raises ValueError for a W whose
     rows are not a multiple of 16 bytes.
 
-    ``meta`` tensors (a dry run's shape-only trace) get an empty h and add
-    ``rglru_flops`` to ``rglru_scan.meta_flops`` and the bytes of a, b and
-    h to ``rglru_scan.meta_bytes``; nothing is computed."""
+    ``meta`` tensors (a dry run's shape-only trace) take the CUDA route up
+    to the launch (the plan's checks, the aligned copies, an empty h) and
+    add ``rglru_flops`` to ``rglru_scan.meta_flops`` and the bytes of a, b
+    and h to ``rglru_scan.meta_bytes``; nothing is launched."""
     if a.device.type == "cpu":
         return ref_rglru_scan(a, b)
-    if a.device.type == "meta":
-        _check(a, b)
-        rglru_scan.meta_flops += rglru_flops(*a.shape)
-        h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-        rglru_scan.meta_bytes += _nbytes(a, b, h)
-        return h
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"no RG-LRU scan for device {a.device}")
-    fn = build.kernel_fn("rglru_scan", "rglru_scan", _ARGTYPES)
+    fn = build.kernel_fn("rglru_scan", "rglru_scan", _ARGTYPES) if a.device.type == "cuda" else None
     _check(a, b)
     bsz, s, w = a.shape
     plan = rglru_plan(bsz, s, w, a.dtype)
+    operand_bytes = _nbytes(a, b)
     a, b = _aligned(a), _aligned(b)
     h = torch.empty((bsz, s, w), dtype=torch.float32, device=a.device)
+    if a.device.type == "meta":
+        rglru_scan.meta_flops += rglru_flops(bsz, s, w)
+        rglru_scan.meta_bytes += operand_bytes + _nbytes(h)
+        return h
     err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, w, plan.rows,
              plan.stages, plan.smem, int(a.dtype == torch.bfloat16),
              torch.cuda.current_stream(a.device).cuda_stream)
@@ -174,32 +174,32 @@ def rglru_scan_bwd(a, h, g):
 
     CPU tensors run the plain backward. CUDA tensors launch the backward
     kernel on contiguous, 16-byte aligned operands (h and g float32), with
-    ``rglru_bwd_plan``'s slabs. ``meta`` tensors get empty outputs and add
-    ``rglru_bwd_flops`` and the bytes of a, h, g and the outputs to
-    ``rglru_scan_bwd.meta_flops`` and ``meta_bytes``."""
+    ``rglru_bwd_plan``'s slabs. ``meta`` tensors take the CUDA route up to
+    the launch (the plan's checks, the float32 and aligned copies, empty
+    outputs) and add ``rglru_bwd_flops`` and the bytes of a, h, g and the
+    outputs to ``rglru_scan_bwd.meta_flops`` and ``meta_bytes``."""
     if a.device.type == "cpu":
         da, db = ref_rglru_scan_bwd(a, h, g)
         return da.to(a.dtype), db.to(a.dtype)
-    if a.device.type == "meta":
-        _check(a, a)
-        rglru_scan_bwd.meta_flops += rglru_bwd_flops(*a.shape)
-        out = (torch.empty(a.shape, dtype=a.dtype, device=a.device),
-               torch.empty(a.shape, dtype=a.dtype, device=a.device))
-        rglru_scan_bwd.meta_bytes += _nbytes(a, h, g, *out)
-        return out
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"no RG-LRU scan backward for device {a.device}")
-    fn = build.kernel_fn("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGTYPES)
+    fn = (build.kernel_fn("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGTYPES)
+          if a.device.type == "cuda" else None)
     _check(a, a)
     if h.shape != a.shape or g.shape != a.shape or h.device != a.device \
             or g.device != a.device:
         raise ValueError(f"h and g must match a {tuple(a.shape)} on {a.device}")
     bsz, s, w = a.shape
     plan = rglru_bwd_plan(bsz, s, w, a.dtype)
+    operand_bytes = _nbytes(a, h, g)
     a = _aligned(a)
     h, g = _aligned(h.float()), _aligned(g.float())
     da = torch.empty((bsz, s, w), dtype=a.dtype, device=a.device)
     db = torch.empty_like(da)
+    if a.device.type == "meta":
+        rglru_scan_bwd.meta_flops += rglru_bwd_flops(bsz, s, w)
+        rglru_scan_bwd.meta_bytes += operand_bytes + _nbytes(da, db)
+        return da, db
     err = fn(a.data_ptr(), h.data_ptr(), g.data_ptr(), da.data_ptr(), db.data_ptr(),
              bsz, s, w, plan.rows, plan.stages, plan.smem,
              int(a.dtype == torch.bfloat16),

@@ -280,30 +280,20 @@ def ssd_scan(x, dt_a, b_mat, c_mat, *, chunk, initial_state=None,
     (batch, head, ``p_slice`` rows of the state), the slices of a head one
     cluster.
 
-    ``meta`` tensors (a dry run's shape-only trace) get empty outputs of
-    the kernel's shapes and dtypes; nothing is computed, and the kernel's
-    operations (``ssd_fwd_flops``) are added to ``ssd_scan.meta_flops``, and
-the bytes of its operands and outputs to ``ssd_scan.meta_bytes``."""
+    ``meta`` tensors (a dry run's shape-only trace) take the CUDA route up
+    to the launch: the same copies of the operands and the same outputs,
+    allocated and left empty; nothing is launched, and the kernel's
+    operations (``ssd_fwd_flops``) are added to ``ssd_scan.meta_flops``,
+    and the bytes of its operands and outputs to ``ssd_scan.meta_bytes``."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt_a, b_mat, c_mat, chunk,
                            initial_state=initial_state,
                            return_all_states=return_all_states)
-    if x.device.type == "meta":
-        _check(x, dt_a, b_mat, c_mat, chunk, initial_state)
-        bsz, s, h, p = x.shape
-        n = b_mat.shape[-1]
-        ssd_scan.meta_flops += ssd_fwd_flops(bsz, s, h, p, n, chunk)
-        out = (torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device),
-               torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device))
-        if return_all_states:
-            out += (torch.empty((bsz, s // chunk, h, p, n), dtype=torch.float32,
-                                device=x.device),)
-        ssd_scan.meta_bytes += _nbytes(x, dt_a, b_mat, c_mat, initial_state, *out)
-        return out
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD scan for device {x.device}")
-    fn = build.kernel_fn("ssd_scan", "ssd_scan", _ARGTYPES)
+    fn = build.kernel_fn("ssd_scan", "ssd_scan", _ARGTYPES) if x.device.type == "cuda" else None
     _check(x, dt_a, b_mat, c_mat, chunk, initial_state)
+    operand_bytes = _nbytes(x, dt_a, b_mat, c_mat, initial_state)
     x, dt_a, b_mat, c_mat = (_aligned(t) for t in (x, dt_a, b_mat, c_mat))
     if initial_state is not None:
         initial_state = _aligned(initial_state)
@@ -314,15 +304,19 @@ the bytes of its operands and outputs to ``ssd_scan.meta_bytes``."""
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     states = (torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
                           device=x.device) if return_all_states else None)
-    ps = p_slice(bsz, h, p, _num_sms(x.device.index or 0))
-    err = fn(x.data_ptr(), dt_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-             initial_state.data_ptr() if initial_state is not None else None,
-             y.data_ptr(), final.data_ptr(),
-             states.data_ptr() if states is not None else None,
-             bsz, s, h, p, n, chunk, ps,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ssd_scan")
-    ssd_scan.launches += 1
+    if x.device.type == "meta":
+        ssd_scan.meta_flops += ssd_fwd_flops(bsz, s, h, p, n, chunk)
+        ssd_scan.meta_bytes += operand_bytes + _nbytes(y, final, states)
+    else:
+        ps = p_slice(bsz, h, p, _num_sms(x.device.index or 0))
+        err = fn(x.data_ptr(), dt_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+                 initial_state.data_ptr() if initial_state is not None else None,
+                 y.data_ptr(), final.data_ptr(),
+                 states.data_ptr() if states is not None else None,
+                 bsz, s, h, p, n, chunk, ps,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "ssd_scan")
+        ssd_scan.launches += 1
     if return_all_states:
         return y, final, states
     return y, final
@@ -380,22 +374,16 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
     state into a (B,S/chunk,H,P,N) buffer, the chunk-parallel launch writes
     dx and d dt_a and each head group's dB and dC, and a third sums the
     groups in a fixed order (bitwise-equal results run to run). ``meta``
-    tensors get empty outputs and add ``ssd_bwd_work``'s operations and
-    bytes to ``ssd_scan_bwd.meta_flops`` and ``meta_bytes``."""
+    tensors take the CUDA route up to the launch, so they allocate the same
+    copies, buffers and outputs, and the buffers die on return as on the
+    card; they add ``ssd_bwd_work``'s operations and bytes to
+    ``ssd_scan_bwd.meta_flops`` and ``meta_bytes``."""
     if x.device.type == "cpu":
         return ssd_chunked_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal)
-    if x.device.type == "meta":
-        _check(x, dt_a, b_mat, c_mat, chunk, None)
-        bsz, s, h, p = x.shape
-        n = b_mat.shape[-1]
-        nbytes, flops, _ = ssd_bwd_work(bsz, s, h, p, n, chunk)
-        ssd_scan_bwd.meta_flops += flops
-        ssd_scan_bwd.meta_bytes += nbytes
-        return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
-                     for shape in ((bsz, s, h, p), (bsz, s, h), (bsz, s, n), (bsz, s, n)))
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD scan backward for device {x.device}")
-    fn = build.kernel_fn("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+    fn = (build.kernel_fn("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+          if x.device.type == "cuda" else None)
     _check(x, dt_a, b_mat, c_mat, chunk, None)
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
@@ -415,6 +403,11 @@ def ssd_scan_bwd(x, dt_a, b_mat, c_mat, chunk, states, dy, dfinal):
     d_dta = torch.empty((bsz, s, h), **f32)
     db = torch.empty((bsz, s, n), **f32)
     dc = torch.empty((bsz, s, n), **f32)
+    if x.device.type == "meta":
+        nbytes, flops, _ = ssd_bwd_work(bsz, s, h, p, n, chunk)
+        ssd_scan_bwd.meta_flops += flops
+        ssd_scan_bwd.meta_bytes += nbytes
+        return dx, d_dta, db, dc
     err = fn(x.data_ptr(), dt_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
              states.data_ptr(), dy.data_ptr(), dfinal.data_ptr(), dh_end.data_ptr(),
              dx.data_ptr(), d_dta.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),

@@ -15,11 +15,30 @@ with the logical-axis hook installed (``repro_torch.launch.sharding``):
 * prefill: ``Model.prefill``;
 * decode: ``Model.decode_step`` over the sharded cache.
 
-Nothing is allocated and nothing is computed; the scan kernels take their
-shape-only ``meta`` route. Per rank (rank 0's shard), each record holds:
+No device memory is allocated and nothing is computed; the scan kernels
+take their shape-only ``meta`` route, which creates (as ``meta`` tensors)
+the buffers their CUDA route allocates and launches nothing. Per rank (rank 0's shard), each record
+holds:
 
 * the bytes of the parameters, gradients, moments and inputs (the decode
-  cache among them), exact, from the local shard shapes;
+  cache among them), exact, from the local shard shapes: a lower bound;
+* ``memory``, the step's memory as the card would hold it, from the
+  storages that rank 0's local ops create and free (``RankCounter``):
+  ``argument_bytes``, those live at entry (parameters, moments, inputs);
+  ``temp_bytes``, the most bytes live during the step past them (the
+  gradients, the checkpointed units' inputs and their recompute, the
+  loss's logits, the optimizer's transients, and the outputs the step
+  allocates); ``output_bytes``, the returned storages that are not the
+  arguments' (a train step updates in place and returns the loss and the
+  gradient norm; prefill and decode the logits and the cache). XLA counts
+  outputs apart from its temporaries; here an output allocated during the
+  step is also in ``temp_bytes``, so a rank's peak is ``argument_bytes +
+  temp_bytes``. ``generated_code_bytes`` is None: eager PyTorch compiles
+  no executable. Outside the count: the caching allocator's rounding (to
+  512 B), cuBLAS's workspaces and the scratch an ATen CUDA kernel
+  allocates inside itself; an op that the card runs through ATen's
+  composite kernel (``logsumexp``) runs it here too, so its temporaries
+  count;
 * ``flops``: the products' operations (PyTorch's flop formulas for mm,
   bmm, convolution, attention) counted on the local ops each rank runs,
   plus the scan kernels' own counts (``ssd_fwd_flops``, ``ssd_bwd_work``,
@@ -38,15 +57,16 @@ shape-only ``meta`` route. Per rank (rank 0's shard), each record holds:
   ``collective_s`` at 450 GB/s a direction (NVLink), a lower bound: a
   `model` axis of 16 spans two 8-card NVLink domains, and no rate between
   them is known here;
-* ``fits_80gb``: whether a rank's parameters, gradients, moments and
-  inputs fit the card's memory as ``torch.cuda.get_device_properties``
-  reports it; None where no card is present.
+* ``fits_80gb``: whether a rank's peak, ``argument_bytes + temp_bytes``,
+  fits the card's memory as ``torch.cuda.get_device_properties`` reports
+  it; None where no card is present.
 
-It does not reproduce: XLA's ``memory_analysis`` temporaries (the
-activation peak: ``memory.temp_bytes`` is None), HLO-level collective
-fusion (every DTensor redistribution is counted as eager PyTorch issues
-it), and ``probe_corrected``: eager execution traces every layer, so no
-scan body is counted once and ``corrected`` holds the direct counts.
+It does not reproduce HLO-level collective fusion (every DTensor
+redistribution is counted as eager PyTorch issues it), nor two things
+that cannot apply to eager PyTorch: ``generated_code_bytes`` (no
+executable) and ``probe_corrected`` (eager execution traces every layer,
+so no scan body is counted once and ``corrected`` holds the direct
+counts).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
@@ -63,12 +83,14 @@ import json
 import os
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
 from torch._guards import detect_fake_mode
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape
@@ -117,12 +139,54 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _local(t):
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _storage_key(t) -> int:
+    return t.untyped_storage()._cdata
+
+
+# ops that have no kernel of their own on the card (nor on the CPU): they
+# run ATen's composite kernel, whose temporaries (for ``logsumexp``, its
+# input less the maximum, exponentiated: the size of the logits) are
+# allocated like any other tensor, unseen by a mode that sees only the op
+_COMPOSITE = {torch.ops.aten.logsumexp.default:
+              torch._C.DispatchKey.CompositeExplicitAutograd,
+              torch.ops.aten.logsumexp.out:
+              torch._C.DispatchKey.CompositeExplicitAutogradNonFunctional}
+
+
+class _InsideComposite(TorchDispatchMode):
+    """The ops inside a composite kernel that ``RankCounter`` runs: their
+    storages count as memory, nothing else of them is counted."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = self.counter._run(func, args, kwargs or {})
+        self.counter._track(out)
+        return out
+
+
 class RankCounter(CommDebugMode):
     """A ``CommDebugMode`` that also sums, over the local ops of rank 0
     (it lets DTensor dispatch first and sees what DTensor runs locally),
     each collective's result bytes by op, the products' operations
     (``torch.utils.flop_counter``'s formulas) and every op's operand and
-    result bytes (views excluded)."""
+    result bytes (views excluded).
+
+    After ``watch(entry)`` it also keeps the live bytes of rank 0: every
+    storage a local op creates counts once, from the op that creates it
+    (or resizes it, for an ``out=`` argument) until the storage dies
+    (``weakref.finalize``); a view, an alias or an in-place result creates
+    none, and the storages of ``entry`` (the tensors live when the step
+    starts) count nowhere. ``peak`` is the most live bytes seen. An op the
+    device runs through its composite kernel (``logsumexp``: the input
+    less its maximum, exponentiated) runs that kernel here too, so its
+    temporaries count."""
 
     def __init__(self):
         super().__init__()
@@ -130,14 +194,57 @@ class RankCounter(CommDebugMode):
         self.bytes = 0
         self.coll = {k: 0 for k in _COLLECTIVES}
         self.count = 0
+        self.live = 0
+        self.peak = 0
+        self._entry = set()
+        self._sizes = None
+
+    def watch(self, entry) -> None:
+        """Start the live-bytes count: from here on ``live`` holds the
+        bytes of the storages created since, ``peak`` the most of it."""
+        self._entry = {_storage_key(_local(t)) for t in _tensors(entry)}
+        self._sizes = {}
+        self.live = self.peak = 0
+
+    def _track(self, out) -> None:
+        """Count the storages of ``out`` not seen yet, and the growth of
+        one seen already (an ``out=`` argument resized by the op)."""
+        if self._sizes is None:
+            return
+        for t in _tensors(out):
+            if type(t) is not torch.Tensor:
+                continue
+            storage = t.untyped_storage()
+            key, n = storage._cdata, storage.nbytes()
+            if key in self._entry:
+                continue
+            old = self._sizes.get(key)
+            if old is None:
+                weakref.finalize(storage, self._release, key)
+            elif n <= old:
+                continue
+            self._sizes[key] = n
+            self.live += n - (old or 0)
+            self.peak = max(self.peak, self.live)
+
+    def _release(self, key) -> None:
+        self.live -= self._sizes.pop(key, 0)      # 0: counted before a later watch
+
+    def _run(self, func, args, kwargs):
+        key = _COMPOSITE.get(func) if self._sizes is not None else None
+        if key is None or detect_fake_mode(args):
+            return func(*args, **kwargs)
+        with _InsideComposite(self):
+            return func._op_dk(key, *args, **kwargs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(t is DTensor or issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         if detect_fake_mode(args):
             return out          # DTensor's shape propagation, not a rank's op
+        self._track(out)
         pkt = func._overloadpacket
         if pkt in self.comm_registry:
             self.comm_counts[pkt] += 1
@@ -150,6 +257,19 @@ class RankCounter(CommDebugMode):
         if not any(r.alias_info is not None and not r.alias_info.is_write for r in returns):
             self.bytes += _nbytes(_tensors(args) + _tensors(kwargs) + _tensors(out))
         return out
+
+
+def _fresh_bytes(out, entry) -> int:
+    """The bytes of the storages of ``out``'s local tensors that are not
+    those of ``entry``'s, each storage once."""
+    seen = {_storage_key(_local(t)) for t in _tensors(entry)}
+    total = 0
+    for t in _tensors(out):
+        key = _storage_key(_local(t))
+        if key not in seen:
+            seen.add(key)
+            total += _local(t).untyped_storage().nbytes()
+    return total
 
 
 def _local_bytes(tree) -> int:
@@ -166,7 +286,11 @@ def _device_memory():
 def measure(cfg, shape, mesh) -> dict:
     """Trace one step of ``cfg`` at ``shape`` on ``mesh`` (a mesh over the
     process group that is up) with meta tensors, and count it. Returns the
-    per-rank bytes, flops, bytes accessed and collectives."""
+    per-rank bytes, flops, bytes accessed and collectives, and the memory
+    of the step: ``temp_bytes``, the most bytes live during the step past
+    those live at entry (``argument_bytes``: parameters, moments and
+    inputs), and ``output_bytes``, the returned storages that are not the
+    arguments'."""
     model = Model(cfg)
     pspecs = model.param_specs()
     params = param_shardings(pspecs, mesh)
@@ -183,21 +307,27 @@ def measure(cfg, shape, mesh) -> dict:
             rank["grads"] = rank["params"]     # a gradient is laid out as its parameter
             rank["moments"] = _local_bytes((opt.m, opt.v))
             step = make_train_step(model, device="cpu")
-            out = step(params, opt, batch)
+            entry, run = (params, opt, batch), lambda: step(params, opt, batch)
         elif shape.kind == "prefill":
-            out = model.prefill(params, batch["tokens"], mm_embeds=batch.get("mm_embeds"))
+            entry, run = (params, batch), lambda: model.prefill(
+                params, batch["tokens"], mm_embeds=batch.get("mm_embeds"))
         else:
-            out = model.decode_step(params, batch["tokens"], batch["cache"], batch["pos"])
+            entry, run = (params, batch), lambda: model.decode_step(
+                params, batch["tokens"], batch["cache"], batch["pos"])
+        counter.watch(entry)
+        out = run()
     rank["total"] = sum(rank.values())
     kernel_flops = sum(k.meta_flops for k in _KERNELS)
     coll = dict(counter.coll)
     coll["total"] = sum(counter.coll.values())
     coll["count"] = counter.count
+    output_bytes = _fresh_bytes(out, entry)
     del out
     return {"per_rank_bytes": rank, "flops": float(counter.flops + kernel_flops),
             "kernel_flops": float(kernel_flops),
             "bytes_accessed": float(counter.bytes + sum(k.meta_bytes for k in _KERNELS)),
-            "collectives": coll}
+            "collectives": coll, "argument_bytes": rank["total"] - rank["grads"],
+            "temp_bytes": counter.peak, "output_bytes": output_bytes}
 
 
 @contextlib.contextmanager
@@ -237,14 +367,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         rank = m["per_rank_bytes"]
         rec["per_rank_bytes"] = rank
         rec["memory"] = {
-            "argument_bytes": rank["params"] + rank["moments"] + rank["inputs"],
-            "output_bytes": None,       # updated in place, or logits + cache (not kept)
-            "temp_bytes": None,         # the activation peak: not reproduced
-            "generated_code_bytes": None,
+            "argument_bytes": m["argument_bytes"],
+            "output_bytes": m["output_bytes"],
+            "temp_bytes": m["temp_bytes"],
+            "generated_code_bytes": None,   # eager PyTorch compiles no executable
         }
         cap = _device_memory()
         rec["device_memory_bytes"] = cap
-        rec["fits_80gb"] = None if cap is None else rank["total"] <= cap
+        peak = m["argument_bytes"] + m["temp_bytes"]
+        rec["fits_80gb"] = None if cap is None else peak <= cap
         rec["collectives"] = m["collectives"]
         rec["corrected"] = {"flops": m["flops"], "bytes": m["bytes_accessed"],
                             "collectives": {k: v for k, v in m["collectives"].items()
@@ -276,10 +407,12 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         status = "OK" if rec["ok"] else f"FAIL ({rec.get('error', '?')})"
         extra = ""
         if rec["ok"]:
-            rank = rec["per_rank_bytes"]
+            rank, mem = rec["per_rank_bytes"], rec["memory"]
             extra = (f" flops={rec['flops']:.3e} bytes={rec['bytes_accessed']:.3e}"
                      f" coll={rec['collectives']['total']:.3e}"
-                     f" rank_bytes={rank['total']:.3e} fits_80gb={rec['fits_80gb']}"
+                     f" rank_bytes={rank['total']:.3e}"
+                     f" peak={mem['argument_bytes'] + mem['temp_bytes']:.3e}"
+                     f" fits_80gb={rec['fits_80gb']}"
                      f" t={rec['compile_s']}s")
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: {status}{extra}",
               flush=True)

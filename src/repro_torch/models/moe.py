@@ -47,10 +47,11 @@ def _route(gates, top_k, capacity):
     n, g, e = gates.shape
     dt = gates.dtype
     remaining = gates
-    base = gates.new_zeros((n, 1, e), dtype=torch.int32)   # tokens already in each expert
-    dispatch = gates.new_zeros((n, g, e, capacity))
-    combine = gates.new_zeros((n, g, e, capacity))
-    sel_gate_sum = gates.new_zeros((n, g, 1))
+    # laid out as gates (on a mesh ``new_zeros`` would make each rank a
+    # whole replicated copy); dispatch and combine start at the first choice
+    base = torch.zeros_like(gates[:, :1], dtype=torch.int32)   # tokens already in each expert
+    sel_gate_sum = torch.zeros_like(gates[..., :1])
+    dispatch = combine = None
     for _ in range(top_k):
         idx = torch.argmax(remaining, dim=-1)                       # (n,G)
         onehot_i = F.one_hot(idx, e).to(torch.int32)                # (n,G,E)
@@ -63,8 +64,9 @@ def _route(gates, top_k, capacity):
                          capacity).to(dt)                           # (n,G,C)
         d_k = onehot[..., None] * slot[..., None, :] * fits[..., None, None]
         gate_val = torch.sum(gates * onehot, dim=-1, keepdim=True)  # (n,G,1)
-        dispatch = dispatch + d_k
-        combine = combine + d_k * gate_val[..., None]
+        c_k = d_k * gate_val[..., None]
+        dispatch = d_k if dispatch is None else dispatch + d_k
+        combine = c_k if combine is None else combine + c_k
         sel_gate_sum = sel_gate_sum + gate_val * fits[..., None]
         remaining = remaining * (1.0 - onehot)
     combine = combine / torch.clamp(sel_gate_sum[..., None], min=1e-9)

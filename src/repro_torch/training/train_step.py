@@ -3,13 +3,17 @@
 The port of ``repro/training/train_step.py``: the loss is logsumexp - gold
 in float32 over ``labels >= 0``; gradients come from
 ``torch.autograd.grad`` over the parameter leaves in JAX's leaf order; the
-update is the in-place AdamW of ``repro_torch.training.optimizer``.
+update is the in-place AdamW of ``repro_torch.training.optimizer``. Where
+a mesh shards the vocab, both terms of the loss run on each rank's vocab
+shard (``_logz``, ``_gold``), so no rank holds the whole (B,S,V).
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.kernels.ops import as_placements
 from repro_torch.models.common import resolve_device
 from repro_torch.models.hooks import constrain
 from repro_torch.models.model import Model
@@ -17,16 +21,67 @@ from repro_torch.params import tree_leaves, tree_unflatten
 from repro_torch.training.optimizer import adamw_update, cosine_lr
 
 
+def _vocab_layout(logits):
+    """The mesh of a DTensor of logits (B,S,V), the mesh dims that shard V
+    and the layout the loss's local functions take: batch and vocab
+    shards kept, anything else gathered."""
+    mesh = logits.device_mesh
+    vocab_dims = [i for i, p in enumerate(logits.placements)
+                  if p == Shard(2) and mesh.size(i) > 1]
+    l_pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in logits.placements)
+    return mesh, vocab_dims, l_pl
+
+
+def _logz(logits):
+    """logsumexp of ``logits`` (B,S,V) over V. Where a mesh shards V, each
+    rank takes the logsumexp of its shard through ``local_map`` and the
+    (B,S, vocab ranks) of them are reduced the same way; the plain call
+    would gather the whole V on every rank first."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    mesh, vocab_dims, l_pl = _vocab_layout(logits)
+    if not vocab_dims:
+        return torch.logsumexp(logits, dim=-1)
+    fn = local_map(lambda lg: torch.logsumexp(lg, dim=-1, keepdim=True),
+                   out_placements=list(l_pl), in_placements=(l_pl,), device_mesh=mesh)
+    return torch.logsumexp(fn(as_placements(logits, mesh, l_pl)), dim=-1)
+
+
+def _gold(logits, idx):
+    """``logits`` (B,S,V) at ``idx`` (B,S) along V. On a DTensor through
+    ``local_map``: each rank takes the labels that fall in its vocab shard
+    (zero for the rest), a partial sum over the vocab ranks, so that the
+    gradient stays on the logits' own shards; the plain gather's backward
+    would build zeros of the whole (B,S,V) on every rank."""
+    if not isinstance(logits, DTensor):
+        return torch.take_along_dim(logits, idx[..., None], dim=-1)[..., 0]
+    mesh, vocab_dims, l_pl = _vocab_layout(logits)
+    i_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in l_pl)
+    o_pl = tuple(Partial() if i in vocab_dims else p for i, p in enumerate(i_pl))
+
+    def local(lg, ix):
+        if not vocab_dims:
+            return torch.take_along_dim(lg, ix[..., None], dim=-1)[..., 0]
+        start = 0
+        for i in vocab_dims:
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        ix = ix - start * lg.shape[-1]
+        inside = (ix >= 0) & (ix < lg.shape[-1])
+        g = torch.take_along_dim(lg, torch.where(inside, ix, 0)[..., None], dim=-1)[..., 0]
+        return torch.where(inside, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    fn = local_map(local, out_placements=list(o_pl), in_placements=(l_pl, i_pl),
+                   device_mesh=mesh)
+    return fn(as_placements(logits, mesh, l_pl), as_placements(idx, mesh, i_pl))
+
+
 def loss_fn(model: Model, params, tokens, labels, mm_embeds=None):
     """Mean next-token negative log-likelihood over ``labels >= 0``."""
     logits = model.forward_train(params, tokens, mm_embeds=mm_embeds).float()
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _logz(logits)
     mask = labels >= 0
-    # under a mesh the gold logits, gathered from vocab shards, are summed
+    # under a mesh the gold logits, taken from vocab shards, are summed
     # over the vocab ranks here
-    gold = constrain(torch.take_along_dim(
-        logits, torch.where(mask, labels, 0).long()[..., None], dim=-1),
-        ("batch", None, None))[..., 0]
+    gold = constrain(_gold(logits, torch.where(mask, labels, 0).long()), ("batch", None))
     nll = logz - gold
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
 

@@ -7,9 +7,11 @@ language, audio), each on the ``.reduced()`` config, all four input
 shapes on both production meshes. Every record must be ``ok``; the file
 names and the record keys are the reference's; the per-rank parameter
 bytes are the sum of JAX's shard arithmetic over JAX's ``param_specs``
-(each dim divided by the product of the axes its spec names); and
+(each dim divided by the product of the axes its spec names);
 ``model_flops_global`` is the reference's 6 (train) or 2 x N_active x
-tokens.
+tokens; and the memory analysis is whole: integer ``temp_bytes`` above 0
+(a train step's at least its gradients) and ``output_bytes``, no
+``generated_code_bytes``.
 """
 import json
 import os
@@ -96,6 +98,12 @@ def test_record_keys_are_the_reference_s(records):
                 "collective-permute", "total", "count"} <= set(rec["collectives"])
         assert rec["chips"] == (512 if rec["mesh"] == "pod2x16x16" else 256)
         assert rec["fits_80gb"] is None          # no card here: not measured
+        mem = rec["memory"]
+        assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
+                            "generated_code_bytes"}
+        assert all(type(mem[k]) is int for k in ("argument_bytes", "output_bytes",
+                                                  "temp_bytes"))
+        assert mem["generated_code_bytes"] is None     # eager: no executable
 
 
 def _param_bytes(arch, mesh):
@@ -133,3 +141,22 @@ def test_per_rank_bytes_and_model_flops_are_the_reference_s(records, arch):
             assert rank["grads"] == rank["moments"] == 0
         assert rank["total"] == sum(v for k, v in rank.items() if k != "total")
         assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_memory_counts_the_step_s_temporaries(records, arch):
+    """Every record's ``temp_bytes`` (the traced step's live-bytes peak past
+    its arguments) is positive; a train step's holds at least its
+    gradients, and returns only the loss and the norm beside the arguments
+    it updates in place; ``argument_bytes`` are the bytes live at entry."""
+    for (a, shape_name, _), rec in records.items():
+        if a != arch:
+            continue
+        mem, rank = rec["memory"], rec["per_rank_bytes"]
+        assert mem["temp_bytes"] > 0, (shape_name, mem)
+        assert mem["argument_bytes"] == rank["params"] + rank["moments"] + rank["inputs"]
+        if INPUT_SHAPES[shape_name].kind == "train":
+            assert mem["temp_bytes"] >= rank["grads"] > 0
+            assert mem["output_bytes"] == 8
+        else:
+            assert mem["output_bytes"] > 0
