@@ -180,11 +180,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
  30. the production dry run (``python -m repro_torch.launch.dryrun``, a
      ``fake`` process group of 256 ranks in each subprocess, on the host)
      at full width: mamba2-1.3b, qwen3-4b and qwen3-moe-30b-a3b at
-     train_4k and decode_32k on the single-pod mesh, side by side; each
+     train_4k and decode_32k on the single-pod mesh, and granite-34b's
+     train_4k on the two-pod mesh (512 ranks), side by side; each
      record's per-rank bytes, ``fits_80gb`` against the card's memory,
      collectives and trace time, and its peak a rank (the arguments plus
      ``temp_bytes``, the live-bytes peak of the traced step), failing on
-     any record not ``ok`` or without a positive ``temp_bytes``; the dry
+     any record not ``ok`` or without a positive ``temp_bytes``; each
+     train record's collectives and largest storage inside
+     ``adamw_update``, failing where that storage or an all-gather's result
+     exceeds the rank's largest parameter shard in float32 (ZeRO-1 keeps
+     the update inside each parameter's `model` shard); the dry
      run's counts of three steps on a (1, 1) mesh: phase 31's training
      step and its 128-token prefill (mamba2-1.3b), and phase 27's
      training step (qwen3-4b), whose peak must lie within PEAK_RTOL (5%)
@@ -198,7 +203,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      backward kernels launched through ``local_map`` (96 and 48 a step, in
      the counters and in a profiled step's trace), the card's peak memory
      over the 12 steps within PEAK_RTOL of the dry run's peak for the same
-     step; then ``Model.prefill`` of a 128-token prompt, with the moments
+     step; the mesh's parameters and ZeRO-1 moments saved through
+     ``training.checkpoint`` and restored into the same placements,
+     bitwise; then ``Model.prefill`` of a 128-token prompt, with the moments
      freed, its peak within PEAK_RTOL of the dry run's, and 8 greedy decode
      steps on the mesh, whose tokens must equal the unsharded path's on the
      same weights; the group destroyed after.
@@ -357,8 +364,12 @@ TRAIN_STEPS_PARITY, PARITY_BATCH, PARITY_SEQ = 3, 2, 32
 # mesh's counts of MESH_STEPS beside them) and its time limit; phase 31's
 # prompt and decode steps after its training steps; and how far the dry
 # run's peak a rank may lie from the card's measured peak for one step
-DRYRUN_SET = [(a, s) for a in ("mamba2-1.3b", "qwen3-4b", "qwen3-moe-30b-a3b")
+DRYRUN_SET = [(a, s, False) for a in ("mamba2-1.3b", "qwen3-4b", "qwen3-moe-30b-a3b")
               for s in ("train_4k", "decode_32k")]
+# ZeRO-1's record: its moments split each parameter's `model` shard over
+# the data and pod ranks, and the optimizer must stay inside that shard
+ZERO1_RECORD = ("granite-34b", "train_4k", True)
+DRYRUN_SET.append(ZERO1_RECORD)
 DRYRUN_TIMEOUT = 600
 MESH_PROMPT, MESH_DECODE = 128, 8
 MESH_STEPS = {"mamba2 train": ("mamba2-1.3b", TRAIN_SEQ, "train"),
@@ -3015,6 +3026,28 @@ def _hold_peak(what, count, peak, left, base):
           f"the card's {card} B")
 
 
+def _zero1_check(r):
+    """Prints what ``adamw_update`` alone issued and created in a train
+    record (``RankCounter.span``), and fails where a storage it created,
+    or an all-gather's result, exceeds the largest parameter shard of the
+    rank in float32: ZeRO-1 keeps the update inside each parameter's own
+    `model` shard."""
+    o = r["optimizer"]
+    ops_ = ", ".join(f"{k} {o['calls'][k]} calls {o['collectives'][k] / 1e9:.3f} GB (largest "
+                     f"{o['largest_result'][k] / 1e9:.3f})" for k in ("all-reduce", "all-gather",
+                                                                     "reduce-scatter"))
+    print(f"    inside adamw_update: {ops_}; largest storage created "
+          f"{o['largest_storage'] / 1e9:.3f} GB against the largest parameter shard in float32 "
+          f"{o['shard_bytes_f32'] / 1e9:.3f} GB")
+    check(0 < o["largest_storage"] <= o["shard_bytes_f32"],
+          f"{r['arch']} x {r['shape']} x {r['mesh']}: the optimizer created a storage of "
+          f"{o['largest_storage']} B, past the largest parameter shard in float32 "
+          f"({o['shard_bytes_f32']} B)")
+    check(o["largest_result"]["all-gather"] <= o["shard_bytes_f32"],
+          f"{r['arch']} x {r['shape']} x {r['mesh']}: the optimizer gathered "
+          f"{o['largest_result']['all-gather']} B at once")
+
+
 def phase_dryrun(qwen_run):
     """Holds phase 27's peak (``qwen_run``) against the dry run's count of
     the same step on a (1, 1) mesh. Returns the (1, 1) mesh's counts of
@@ -3024,7 +3057,7 @@ def phase_dryrun(qwen_run):
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as out:
         cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
-                 "--out", out] for a, s in DRYRUN_SET]
+                 "--out", out] + (["--multipod"] if mp else []) for a, s, mp in DRYRUN_SET]
         cmds += [[sys.executable, "-c", _MESH_COUNT.format(arch=a, seq=n, kind=k)]
                  for a, n, k in MESH_STEPS.values()]
         t0 = time.perf_counter()
@@ -3040,8 +3073,9 @@ def phase_dryrun(qwen_run):
             check(rc == 0, f"{' '.join(c[1:4])[:200]} failed: {stdout[-2000:]}{stderr[-2000:]}")
         recs = [json.loads(f.read_text()) for f in sorted(Path(out).glob("*.json"))]
     check(len(recs) == len(DRYRUN_SET), f"{len(recs)} dry-run records of {len(DRYRUN_SET)}")
-    print(f"  {len(recs)} combinations on pod16x16 (256 ranks) and {len(MESH_STEPS)} steps on a "
-          f"(1, 1) mesh, one process each, side by side: {wall:.1f} s wall; {_smi()}")
+    print(f"  {len(recs)} combinations ({len(recs) - 1} on pod16x16, 256 ranks; "
+          f"{ZERO1_RECORD[0]} {ZERO1_RECORD[1]} on pod2x16x16, 512) and {len(MESH_STEPS)} "
+          f"steps on a (1, 1) mesh, one process each, side by side: {wall:.1f} s wall; {_smi()}")
     for r in recs:
         check(r["ok"], f"dry run {r['arch']} x {r['shape']}: {r.get('error')}")
         b, c, rf, mem = r["per_rank_bytes"], r["collectives"], r["roofline"], r["memory"]
@@ -3050,9 +3084,10 @@ def phase_dryrun(qwen_run):
               f"dry run {r['arch']} x {r['shape']}: memory {mem}")
         ops_ = ", ".join(f"{k} {c[k] / 1e9:.3f}" for k in ("all-reduce", "all-gather",
                                                         "reduce-scatter", "all-to-all"))
-        print(f"  {r['arch']} x {r['shape']}: per rank params {b['params'] / 1e9:.3f} GB, "
-              f"grads {b['grads'] / 1e9:.3f}, moments {b['moments'] / 1e9:.3f}, inputs "
-              f"{b['inputs'] / 1e9:.3f}, total {b['total'] / 1e9:.3f} GB; peak "
+        print(f"  {r['arch']} x {r['shape']} x {r['mesh']}: per rank params "
+              f"{b['params'] / 1e9:.3f} GB, grads {b['grads'] / 1e9:.3f}, moments "
+              f"{b['moments'] / 1e9:.3f}, inputs {b['inputs'] / 1e9:.3f}, total "
+              f"{b['total'] / 1e9:.3f} GB; peak "
               f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.3f} GB (arguments "
               f"{mem['argument_bytes'] / 1e9:.3f} + temp_bytes {mem['temp_bytes'] / 1e9:.3f}; "
               f"output_bytes {mem['output_bytes'] / 1e9:.3f}), fits_80gb {r['fits_80gb']} "
@@ -3061,6 +3096,11 @@ def phase_dryrun(qwen_run):
               f"{c['count']} ops, {c['total'] / 1e9:.3f} GB ({ops_}); roofline compute "
               f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, collective >= "
               f"{rf['collective_s']:.4f} s ({rf['dominant']}); traced in {r['wall_s']:.1f} s")
+        if "optimizer" in r:
+            _zero1_check(r)
+    check(any((r["arch"], r["shape"], r["mesh"]) == (ZERO1_RECORD[0], ZERO1_RECORD[1],
+                                                     "pod2x16x16") for r in recs),
+          f"no record of {ZERO1_RECORD}")
     counts = {what: json.loads(res[0].splitlines()[-1])
               for what, res in zip(MESH_STEPS, results[len(DRYRUN_SET):])}
     for what, m in counts.items():
@@ -3089,6 +3129,34 @@ def _greedy(model, params, prompt, pos_like, peaks=None):
         out.append(int(_full(cur)[0]))
         seen.append(_full(logits))
     return out, seen
+
+
+def _checkpoint_zero1(params, opt):
+    """Saves the mesh's training state (parameters and ZeRO-1 moments)
+    through ``training.checkpoint`` and restores it into the same layout:
+    every restored leaf in its placements and bitwise the saved one."""
+    from repro_torch.training import checkpoint
+    state = {"params": params, "m": opt.m, "v": opt.v}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "zero1")
+        t0 = time.perf_counter()
+        checkpoint.save(path, state, step=opt.step)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path + ".npz")
+        t0 = time.perf_counter()
+        restored, step_n = checkpoint.restore(path, state)
+        t_restore = time.perf_counter() - t0
+    leaves, saved = tree_leaves(restored), tree_leaves(state)
+    same = [a.placements == b.placements and torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(leaves, saved)]
+    moments = same[len(tree_leaves(params)):]
+    print(f"  the ZeRO-1 state saved ({size / 1e9:.3f} GB, {len(saved)} leaves, {t_save:.1f} s) "
+          f"and restored into the mesh's layout ({t_restore:.1f} s): {sum(moments)} of "
+          f"{len(moments)} moments and {sum(same) - sum(moments)} of "
+          f"{len(same) - len(moments)} parameters bitwise equal, step {step_n}")
+    check(all(same) and step_n == opt.step,
+          f"the restored ZeRO-1 state differs: {same.count(False)} leaves, step {step_n}")
+    del restored, leaves
 
 
 def phase_train_mesh(mamba_run, counts):
@@ -3181,6 +3249,8 @@ def phase_train_mesh(mamba_run, counts):
         check(per_kernel[SSD_KERNEL] == 2 * cfg.num_layers
               and all(per_kernel[k] == cfg.num_layers for k in SSD_BWD_KERNELS),
               f"the profiled step's trace does not show the SSD kernels' launches: {per_kernel}")
+
+        _checkpoint_zero1(params, opt)
 
         # the prefill's arguments are the weights and the prompt: the
         # training run's moments and batches go first

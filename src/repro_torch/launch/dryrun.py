@@ -49,6 +49,12 @@ holds:
   excluded, as eager PyTorch runs them unfused, plus the kernels' operands;
 * ``collectives``: each collective's result bytes by op, counted by a
   ``CommDebugMode``;
+* ``optimizer`` (train): what ``adamw_update`` alone issues and creates,
+  from ``RankCounter.span``: its collectives' result bytes, calls and
+  largest single result by op, the largest storage it creates, and
+  ``shard_bytes_f32``, the largest parameter shard of a rank in float32,
+  which bounds that storage (ZeRO-1 keeps the update inside each
+  parameter's own shard);
 * ``model_flops_global`` and ``model_flops_per_chip``: 6 (train) or 2
   (prefill, decode) x N_active x tokens, as in the reference;
 * ``compile_s``: the wall seconds of building and tracing the step;
@@ -101,6 +107,7 @@ from repro_torch.launch.sharding import (distribute, input_specs, on_mesh,
                                          param_shardings, zero1_adamw_init)
 from repro_torch.models.model import Model
 from repro_torch.params import tree_leaves
+from repro_torch.training.optimizer import adamw_update
 from repro_torch.training.train_step import make_train_step
 
 # NVIDIA H100 SXM (80GB HBM3, 700 W) datasheet peaks
@@ -193,9 +200,13 @@ class RankCounter(CommDebugMode):
         self.flops = 0
         self.bytes = 0
         self.coll = {k: 0 for k in _COLLECTIVES}
+        self.calls = {k: 0 for k in _COLLECTIVES}
+        self.widest = {k: 0 for k in _COLLECTIVES}
         self.count = 0
         self.live = 0
         self.peak = 0
+        self.largest = 0
+        self.spans = {}
         self._entry = set()
         self._sizes = None
 
@@ -226,6 +237,26 @@ class RankCounter(CommDebugMode):
             self._sizes[key] = n
             self.live += n - (old or 0)
             self.peak = max(self.peak, self.live)
+            self.largest = max(self.largest, n)
+
+    @contextlib.contextmanager
+    def span(self, name):
+        """Counts the block apart, into ``spans[name]``: its collectives
+        (result bytes, calls and the largest single result, by op) and the
+        largest storage it creates (after ``watch``)."""
+        coll, calls = dict(self.coll), dict(self.calls)
+        outer = self.largest, self.widest
+        self.largest, self.widest = 0, {k: 0 for k in _COLLECTIVES}
+        try:
+            yield
+        finally:
+            self.spans[name] = {
+                "collectives": {k: self.coll[k] - coll[k] for k in _COLLECTIVES},
+                "calls": {k: self.calls[k] - calls[k] for k in _COLLECTIVES},
+                "largest_result": dict(self.widest),
+                "largest_storage": self.largest}
+            self.largest = max(outer[0], self.largest)
+            self.widest = {k: max(outer[1][k], self.widest[k]) for k in _COLLECTIVES}
 
     def _release(self, key) -> None:
         self.live -= self._sizes.pop(key, 0)      # 0: counted before a later watch
@@ -248,7 +279,10 @@ class RankCounter(CommDebugMode):
         pkt = func._overloadpacket
         if pkt in self.comm_registry:
             self.comm_counts[pkt] += 1
-            self.coll[_collective_name(pkt.__name__)] += _nbytes(_tensors(out))
+            name, n = _collective_name(pkt.__name__), _nbytes(_tensors(out))
+            self.coll[name] += n
+            self.calls[name] += 1
+            self.widest[name] = max(self.widest[name], n)
             self.count += 1
             return out
         if pkt in flop_registry:
@@ -306,7 +340,10 @@ def measure(cfg, shape, mesh) -> dict:
             opt = zero1_adamw_init(params, mesh)
             rank["grads"] = rank["params"]     # a gradient is laid out as its parameter
             rank["moments"] = _local_bytes((opt.m, opt.v))
-            step = make_train_step(model, device="cpu")
+            def update(*a, **k):
+                with counter.span("adamw_update"):
+                    return adamw_update(*a, **k)
+            step = make_train_step(model, device="cpu", update=update)
             entry, run = (params, opt, batch), lambda: step(params, opt, batch)
         elif shape.kind == "prefill":
             entry, run = (params, batch), lambda: model.prefill(
@@ -323,8 +360,14 @@ def measure(cfg, shape, mesh) -> dict:
     coll["count"] = counter.count
     output_bytes = _fresh_bytes(out, entry)
     del out
+    optimizer = counter.spans.get("adamw_update")
+    if optimizer is not None:
+        # the bound the optimizer's storages keep to: a parameter's own
+        # shard in float32
+        optimizer["shard_bytes_f32"] = max(t.to_local().numel() * 4
+                                           for t in tree_leaves(params))
     return {"per_rank_bytes": rank, "flops": float(counter.flops + kernel_flops),
-            "kernel_flops": float(kernel_flops),
+            "optimizer": optimizer, "kernel_flops": float(kernel_flops),
             "bytes_accessed": float(counter.bytes + sum(k.meta_bytes for k in _KERNELS)),
             "collectives": coll, "argument_bytes": rank["total"] - rank["grads"],
             "temp_bytes": counter.peak, "output_bytes": output_bytes}
@@ -377,6 +420,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         peak = m["argument_bytes"] + m["temp_bytes"]
         rec["fits_80gb"] = None if cap is None else peak <= cap
         rec["collectives"] = m["collectives"]
+        if m["optimizer"] is not None:
+            rec["optimizer"] = m["optimizer"]
         rec["corrected"] = {"flops": m["flops"], "bytes": m["bytes_accessed"],
                             "collectives": {k: v for k, v in m["collectives"].items()
                                             if k != "count"}}

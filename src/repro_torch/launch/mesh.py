@@ -53,3 +53,23 @@ def data_axes(mesh) -> tuple:
 
 def model_axis_size(mesh) -> int:
     return mesh_sizes(mesh)["model"]
+
+
+def shard_blocks(placements, mesh_shape, coord, dim: int, total: int) -> list:
+    """The blocks of tensor dim ``dim``, cut into ``total`` equal blocks,
+    that the rank at mesh coordinate ``coord`` holds under DTensor
+    ``placements``, in its local order. DTensor splits a dim mesh dim by
+    mesh dim: a ``Shard`` keeps the rank's part of what it holds so far; a
+    ``_StridedShard`` of split factor f cuts that into f equal pieces and
+    keeps the rank's part of each. ``total`` must be a multiple of the
+    product of the mesh sizes that shard ``dim``."""
+    idx = list(range(total))
+    for size, c, p in zip(mesh_shape, coord, placements):
+        if p.is_replicate() or p.is_partial() or p.dim != dim:
+            continue
+        pieces = getattr(p, "split_factor", 1)
+        piece = len(idx) // pieces
+        part = piece // size
+        idx = [x for f in range(pieces)
+               for x in idx[f * piece + c * part:f * piece + (c + 1) * part]]
+    return idx

@@ -13,18 +13,16 @@ entry per tensor dim, None or the tuple of mesh axes that dim shards over
 (what ``PartitionSpec`` holds in the JAX package). ``to_placements`` turns
 a spec into DTensor placements, one per mesh dim.
 
-**Shard order across two mesh axes.** A dim sharded over more than one
-mesh axis orders its shards differently in the two packages. JAX orders
-them by the spec: ZeRO-1's ``("model", "data")`` is model-major, so the
-rank at (data i, model j) holds block ``j * |data| + i``. DTensor orders
-them by mesh dim, and the mesh is (``pod``,) ``data``, ``model``, so the
-same rank holds block ``i * |model| + j`` (data-major). The local shard
-shapes, and so every byte count, are equal; which slice lands on which
-rank differs. Only the moments' ZeRO-1 specs shard one dim over more than
-one axis with that order reversed (``batch``'s ``("pod", "data")`` follows
-the mesh's order in both), and the optimizer updates each moment shard
-from the gradient redistributed to that same layout, so the difference
-moves no result.
+**Shard order across several mesh axes.** A dim that a spec shards over
+more than one mesh axis is split in the spec's order, major first, as JAX
+splits it: ZeRO-1's ``("model", "data", "pod")`` puts the rank at (pod k,
+data i, model j) on block ``(j * |data| + i) * |pod| + k``, a slice of its
+own `model` shard. DTensor splits a dim in mesh-dim order, (``pod``,)
+``data``, ``model``, so ``to_placements`` makes each mesh axis that the spec
+lists after axes that come later in the mesh a ``_StridedShard`` whose
+split factor is the product of those axes' sizes. ``batch``'s ``("pod",
+"data")`` follows the mesh's order and stays plain ``Shard``s. Local shard
+shapes are the reference's either way.
 """
 from __future__ import annotations
 
@@ -34,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.mesh import mesh_sizes
@@ -115,14 +114,23 @@ def _leaf_spec(path_names, leaf, mesh, extra_axes=()) -> tuple:
 
 
 def to_placements(spec, mesh) -> tuple:
-    """DTensor placements of a per-dim spec, one per mesh dim: ``Shard(i)``
-    on each mesh axis that tensor dim ``i`` names, ``Replicate()`` on the
-    others. (A dim named by two mesh axes is split data-major, in mesh
-    order; the module note says how JAX's order differs.)"""
+    """DTensor placements of a per-dim spec, one per mesh dim: a shard of
+    tensor dim ``i`` on each mesh axis that ``spec[i]`` names, split in the
+    spec's order (the module note), ``Replicate()`` on the others."""
+    sizes = mesh_sizes(mesh)
+    order = list(sizes)
     out = []
-    for axis in mesh_sizes(mesh):
+    for axis in order:
         dims = [i for i, s in enumerate(spec) if s and axis in s]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        if not dims:
+            out.append(Replicate())
+            continue
+        axes = spec[dims[0]]
+        split = 1
+        for a in axes[:axes.index(axis)]:
+            if order.index(a) > order.index(axis):
+                split *= sizes[a]
+        out.append(_StridedShard(dims[0], split_factor=split) if split > 1 else Shard(dims[0]))
     return tuple(out)
 
 

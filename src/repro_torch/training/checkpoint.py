@@ -7,6 +7,15 @@ under the header type ``<V2`` (numpy has no bfloat16), so the members are
 byte for byte what the JAX package writes. ``restore`` reads float32 and
 such 2-byte leaves (as bfloat16 bits), so a float32 file written by either
 package restores in the other, and a bfloat16 file restores here.
+
+A mesh's training state (DTensor leaves: the parameters of
+``repro_torch.launch.sharding.param_shardings``, ZeRO-1 moments) saves as
+the reference saves a sharded ``jax.Array``, as its global array: every
+rank gathers each leaf in turn (``full_tensor``), rank 0 writes it, and
+the ranks meet at a barrier once the file is closed. ``restore`` gives
+such a leaf back in ``like``'s mesh and placements: each rank cuts its own
+blocks of the global array (``distribute_tensor`` without a source rank,
+strided blocks included) and sends nothing.
 """
 from __future__ import annotations
 
@@ -15,8 +24,12 @@ import os
 import zipfile
 from typing import Any, Tuple
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.params import tree_leaves, tree_unflatten
 
@@ -35,15 +48,26 @@ def _write_member(zf, name, arr):
 
 
 def save(path: str, tree: Any, step: int = 0) -> None:
+    """Writes ``tree`` with ``step``. With DTensor leaves every rank of
+    their mesh must call it: each leaf is gathered whole, rank 0 writes."""
     leaves = tree_leaves(tree)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    sharded = any(isinstance(x, DTensor) for x in leaves)
+    writer = not sharded or dist.get_rank() == 0
+    path = path if path.endswith(".npz") else path + ".npz"
+    if writer:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = np.frombuffer(json.dumps({"n": len(leaves), "step": step}).encode(),
                          dtype=np.uint8)
-    with zipfile.ZipFile(path if path.endswith(".npz") else path + ".npz", "w",
-                         compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
-        _write_member(zf, "__treedef__", meta)
+    with (zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED, allowZip64=True)
+          if writer else contextlib.nullcontext()) as zf:
+        if writer:
+            _write_member(zf, "__treedef__", meta)
         for i, x in enumerate(leaves):
-            _write_member(zf, f"leaf_{i}", x)
+            x = x.full_tensor() if isinstance(x, DTensor) else x
+            if writer:
+                _write_member(zf, f"leaf_{i}", x)
+    if sharded:
+        dist.barrier()
 
 
 def _leaf(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -51,11 +75,16 @@ def _leaf(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    if isinstance(like, DTensor):
+        # every rank read the same global array: each keeps its own blocks
+        return distribute_tensor(t.to(device=like.to_local().device, dtype=like.dtype),
+                                 like.device_mesh, like.placements, src_data_rank=None)
     return t.to(device=like.device, dtype=like.dtype)
 
 
 def restore(path: str, like: Any) -> Tuple[Any, int]:
-    """(tree shaped, typed and placed like ``like``, step)."""
+    """(tree shaped, typed and placed like ``like``, step); a DTensor leaf
+    in ``like``'s mesh and placements."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:

@@ -14,20 +14,28 @@ v the tensors it was given, updated.
 
 Distributed trees (DTensor leaves, ``repro_torch.launch.sharding``) are
 updated a local shard at a time, never through a flat view of the whole
-leaf: each gradient is first moved to its moments' layout (with ZeRO-1
-moments, a reduce-scatter of the partial sums), the global norm sums each
-leaf's local squares and then those of one sharding layout across the
-ranks in one all-reduce, and each parameter's updated shard is gathered
-back to the parameter's own layout.
+leaf. Where ZeRO-1 moments split a parameter's own shard further over the
+data ranks (the ZeRO ranks), the update stays inside that shard, as XLA's
+does in the reference: the gradient's pending sum over those ranks is
+reduce-scattered straight into the moments' layout (one functional
+collective over the ZeRO ranks' group), the parameter's slice in that
+layout is a local cut, and the updated slices are all-gathered back into
+the parameter's shard. Any other gradient is moved to its moments' layout
+by DTensor. The global norm sums each leaf's local squares and then those
+of one sharding layout across the ranks in one all-reduce.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import itertools
+import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.launch.mesh import shard_blocks
 from repro_torch.params import tree_leaves, tree_map
 
 # elements of a leaf updated at once: the float32 temporaries of one slice
@@ -86,7 +94,7 @@ def global_norm(tree) -> torch.Tensor:
             if any(p.is_partial() for p in x.placements):
                 x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
                                                    for p in x.placements])
-            dims = tuple(d for d, p in enumerate(x.placements) if p.is_shard())
+            dims = tuple(d for d, p in enumerate(x.placements) if not p.is_replicate())
             if dims:
                 layouts.setdefault((x.device_mesh, dims), []).append(i)
             x = x.to_local()
@@ -101,12 +109,120 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def _to_layout(g, like):
-    """A DTensor gradient on the layout of ``like`` (its moment): pending
-    sums reduced, shards cut or gathered as that layout wants."""
-    if tuple(g.placements) == tuple(like.placements):
-        return g
-    return g.redistribute(like.device_mesh, like.placements)
+class _Zero(NamedTuple):
+    """Where a leaf's ZeRO-1 moments cut its parameter's own shard: the
+    ZeRO ranks are those of mesh dims ``mesh_dims``; the cut is along
+    tensor dim ``dim`` into as many equal chunks as there are ZeRO ranks;
+    ``chunks[r]`` is the chunk the ZeRO rank of group rank ``r`` holds,
+    ``own`` this rank's group rank, ``group`` the ZeRO ranks' process
+    group (None for one rank)."""
+    mesh_dims: tuple
+    dim: int
+    chunks: tuple
+    own: int
+    group: object
+
+
+# per mesh (by id, with a weak reference that tells a new mesh from a dead
+# one): the flattened groups of its mesh dims. Slicing a mesh runs tensor
+# ops (which the dry run would count every step) and a new group is a
+# collective, so each is made once.
+_GROUPS = {}
+
+
+def _zero_group(mesh, dims):
+    """The process group of the mesh dims ``dims`` (in mesh order): the
+    mesh dim's own, or their flattened mesh's."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    ref, groups = _GROUPS.get(id(mesh), (None, None))
+    if ref is None or ref() is not mesh:
+        groups = {}
+        _GROUPS[id(mesh)] = (weakref.ref(mesh), groups)
+    if dims not in groups:
+        names = tuple(mesh.mesh_dim_names[i] for i in dims)
+        groups[dims] = mesh[names]._flatten().get_group()
+    return groups[dims]
+
+
+def _sharded(pl, dim=None) -> bool:
+    return not (pl.is_replicate() or pl.is_partial()) and (dim is None or pl.dim == dim)
+
+
+def _zero_plan(p, m) -> Optional[_Zero]:
+    """The ZeRO-1 split of parameter ``p``'s shard by its moment ``m``: the
+    mesh dims where the layouts differ (``p`` replicated there, ``m``
+    sharding one tensor dim further) are the ZeRO ranks, and each holds
+    one chunk of the shard. None where ``m`` is laid out as ``p``."""
+    pp, mp = tuple(p.placements), tuple(m.placements)
+    zero = tuple(i for i, (a, b) in enumerate(zip(pp, mp)) if a != b)
+    if not zero:
+        return None
+    dims = {mp[i].dim for i in zero if _sharded(mp[i])}
+    if len(dims) != 1 or any(not pp[i].is_replicate() for i in zero):
+        raise ValueError(f"moments laid out {mp} do not split the parameter's shard {pp}")
+    dim = dims.pop()
+    mesh = m.device_mesh
+    shape, coord = tuple(mesh.shape), mesh.get_coordinate()
+    total = int(np.prod([shape[i] for i, pl in enumerate(mp) if _sharded(pl, dim)]))
+    mine = shard_blocks(pp, shape, coord, dim, total)
+    chunks = []
+    for zc in itertools.product(*(range(shape[i]) for i in zero)):   # group order
+        at = list(coord)
+        for i, c in zip(zero, zc):
+            at[i] = c
+        block, = shard_blocks(mp, shape, at, dim, total)
+        if block not in mine:
+            raise ValueError(f"moments laid out {mp} leave the parameter's shard {pp}")
+        chunks.append(mine.index(block))
+    own = int(np.ravel_multi_index([coord[i] for i in zero], [shape[i] for i in zero]))
+    group = None
+    if len(chunks) > 1:
+        group = _zero_group(mesh, zero)
+        if dist.get_rank(group) != own:
+            raise RuntimeError(f"the ZeRO group of mesh dims {zero} is not in mesh order")
+    return _Zero(zero, dim, tuple(chunks), own, group)
+
+
+def _chunk(x, plan, r):
+    size = x.shape[plan.dim] // len(plan.chunks)
+    return x.narrow(plan.dim, plan.chunks[r] * size, size)
+
+
+def _grad_to_zero(g, p, m, plan):
+    """A DTensor gradient of ``p`` in the layout of its moment ``m``, which
+    splits ``p``'s shard by ``plan``: a pending sum over the ZeRO ranks is
+    reduce-scattered into it, a replicated value cut locally."""
+    mesh, gp = m.device_mesh, tuple(g.placements)
+    pending = all(gp[i].is_partial() and gp[i].reduce_op == "sum" for i in plan.mesh_dims)
+    want = tuple(gp[i] if pending and i in plan.mesh_dims else pl
+                 for i, pl in enumerate(p.placements))
+    if gp != want:
+        g = g.redistribute(mesh, want)
+    gl = g.to_local()
+    n = len(plan.chunks)
+    if pending and n > 1:
+        # the chunks in group order, stacked along dim 0: rank r's is the r-th
+        send = torch.cat([_chunk(gl, plan, r) for r in range(n)], dim=0)
+        out = torch.ops._c10d_functional.reduce_scatter_tensor(
+            send, "sum", n, plan.group.group_name)
+        local = torch.ops._c10d_functional.wait_tensor(out)
+    else:
+        local = _chunk(gl, plan, plan.own)
+    return DTensor.from_local(local, mesh, m.placements, run_check=False, shape=g.shape,
+                              stride=g.stride())
+
+
+def _gather_into(local, shard, plan):
+    """Writes ``shard``, this rank's updated chunk of the parameter's own
+    shard ``local``, and the other ZeRO ranks' chunks, all-gathered over
+    their group, into ``local``."""
+    n = len(plan.chunks)
+    out = torch.ops._c10d_functional.all_gather_into_tensor(shard, n, plan.group.group_name)
+    got = torch.ops._c10d_functional.wait_tensor(out)
+    rows = shard.shape[0]
+    for r in range(n):
+        _chunk(local, plan, r).copy_(got[r * rows:(r + 1) * rows])
 
 
 @torch.no_grad()
@@ -117,30 +233,36 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
     place. Returns (params, new state, gnorm): gnorm is the global norm of
     the gradients before clipping, a 0-d float32 tensor."""
     ps, ms, vs = tree_leaves(params), tree_leaves(state.m), tree_leaves(state.v)
-    gs = [_to_layout(g, m) if isinstance(g, DTensor) else g
-          for g, m in zip(tree_leaves(grads), ms)]
+    plans = [_zero_plan(p, m) if isinstance(p, DTensor) else None for p, m in zip(ps, ms)]
+    gs = []
+    for g, p, m, plan in zip(tree_leaves(grads), ps, ms, plans):
+        if plan is not None:
+            g = _grad_to_zero(g, p, m, plan)
+        elif isinstance(g, DTensor) and tuple(g.placements) != tuple(m.placements):
+            g = g.redistribute(m.device_mesh, m.placements)
+        gs.append(g)
     gnorm = global_norm(gs)
     scale = torch.clamp(clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     f = np.float32
     bc1 = float(f(1.0) - f(b1) ** f(step))
     bc2 = float(f(1.0) - f(b2) ** f(step))
-    for p, g, m, v in zip(ps, gs, ms, vs):
+    for p, g, m, v, plan in zip(ps, gs, ms, vs, plans):
         if not isinstance(p, DTensor):
             _update(p.view(-1), g.reshape(-1), m.view(-1), v.view(-1), scale, lr, b1, b2,
                     bc1, bc2, eps, weight_decay)
             continue
-        # the rank's slice of p in its moments' layout (a local cut, no
-        # collective), updated, then gathered back to p's own layout
-        mesh, layout = m.device_mesh, m.placements
-        own = tuple(p.placements) == tuple(layout)
-        shard = p.to_local() if own else p.redistribute(mesh, layout).to_local().contiguous()
+        # the rank's chunk of its own shard (a local cut), updated, then
+        # gathered back over the ZeRO ranks
+        local = p.to_local()
+        part = local if plan is None else _chunk(local, plan, plan.own)
+        shard = part if part.is_contiguous() else part.contiguous()
         _update(shard.view(-1), g.to_local().reshape(-1), m.to_local().view(-1),
                 v.to_local().view(-1), scale, lr, b1, b2, bc1, bc2, eps, weight_decay)
-        if not own:
-            new = DTensor.from_local(shard, mesh, layout, run_check=False, shape=p.shape,
-                                     stride=p.stride())
-            p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+        if plan is not None and plan.group is not None:
+            _gather_into(local, shard, plan)
+        elif shard is not part:
+            part.copy_(shard)
     return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 

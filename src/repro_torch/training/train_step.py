@@ -102,7 +102,7 @@ def loss_and_grads(model: Model, params, batch):
 
 def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
-                    device="cuda"):
+                    device="cuda", update=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics), with ``params`` and the optimizer state updated in place.
 
@@ -112,7 +112,9 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
     DTensors (a batch distributed over a mesh, with the parameters and the
     optimizer state) are taken as they are.
     ``metrics``: the loss and the gradient norm as 0-d tensors, the
-    learning rate of the step as a float."""
+    learning rate of the step as a float. ``update`` stands in for the
+    optimizer's step, ``adamw_update`` (the dry run passes it wrapped, to
+    count the optimizer apart)."""
     dev = resolve_device(device)
 
     def train_step(params, opt_state, batch):
@@ -121,7 +123,7 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
         loss, grads = loss_and_grads(model, params, b)
         lr = cosine_lr(opt_state.step, peak=peak_lr, warmup=warmup,
                        total=total_steps)
-        params, opt_state, gnorm = adamw_update(
+        params, opt_state, gnorm = (update or adamw_update)(
             params, tree_unflatten(params, grads), opt_state, lr=lr)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

@@ -14,9 +14,12 @@ does):
   - on a real ``DeviceMesh`` over a ``fake`` process group of 256 and 512
     ranks, each DTensor's local shard shape is the reference's arithmetic
     (each dim divided by the product of its mesh axes), and a dim split
-    over two mesh axes orders its shards by mesh dim (data-major), where
-    JAX orders them by the spec (model-major): the difference the module
-    note of ``repro_torch.launch.sharding`` states.
+    over several mesh axes puts each rank on JAX's block, the spec's axes
+    major first (ZeRO-1's model-major moments, strided shards in DTensor);
+  - on that group, ``adamw_update`` of a leaf whose moments ZeRO-1 splits
+    along its `model` dim issues one reduce-scatter and gathers nothing
+    larger than the leaf's `model` shard, and creates no storage larger
+    than that shard in float32 (``RankCounter``).
 """
 from types import SimpleNamespace
 
@@ -229,22 +232,148 @@ def _block(coords, axes, sizes):
     return block
 
 
+# ranks probed on both meshes: rank 18 (data 1, model 2 on pod16x16), the
+# first and the last, and one in each pod of pod2x16x16
+PROBED = (0, 18, 37, 255, 300, 511)
+
+
+def _coords(mesh, rank):
+    """A rank's coordinate on ``mesh`` (ranks laid out row-major)."""
+    out, rest = [], rank
+    for size in reversed(mesh.shape):
+        out.append(rest % size)
+        rest //= size
+    return tuple(reversed(out))
+
+
+def _offset(shape, mesh, placements, coord):
+    """(local shape, global offset) DTensor gives the rank at ``coord``."""
+    from torch.distributed.tensor._utils import _compute_local_shape_and_global_offset
+    return _compute_local_shape_and_global_offset(shape, mesh.shape, list(coord), placements)
+
+
+def _check_blocks(mesh, shape, dim, spec, strided):
+    """Each probed rank of ``mesh`` holds, of ``shape``'s dim ``dim`` split
+    by ``spec``, JAX's block (the spec's axes major first), by DTensor's
+    own offsets and by ``mesh.shard_blocks`` (the optimizer's and the
+    checkpoint's arithmetic); the axes in ``strided`` are the strided
+    shards; and this process's own shard, cut by DTensor from real
+    values, is that block."""
+    from repro_torch.launch.mesh import shard_blocks
+    sizes = _sizes(mesh)
+    axes = spec[dim]
+    placements = sh.to_placements(spec, mesh)
+    assert [type(p).__name__ == "_StridedShard" for p in placements] == \
+        [a in strided for a in sizes]
+    n = int(np.prod([sizes[a] for a in axes]))
+    rows = shape[dim] // n
+    for rank in PROBED:
+        if rank >= mesh.size():
+            continue
+        coord = _coords(mesh, rank)
+        coords = dict(zip(mesh.mesh_dim_names, coord))
+        local, offset = _offset(shape, mesh, placements, coord)
+        block = _block(coords, axes, sizes)
+        assert local[dim] == rows and offset[dim] == block * rows, (rank, coords)
+        assert shard_blocks(placements, mesh.shape, coord, dim, n) == [block]
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    x = torch.arange(shape[dim]).reshape([-1 if d == dim else 1 for d in range(2)]).expand(shape)
+    got = torch.distributed.tensor.distribute_tensor(x, mesh, placements,
+                                                     src_data_rank=None).to_local()
+    first = _block(coords, axes, sizes) * rows
+    assert torch.equal(got.select(1 - dim, 0), torch.arange(first, first + rows))
+
+
 def test_two_axis_shards_order_by_mesh_dim(fake_mesh):
     """ZeRO-1 splits qwen3-4b's w1 (2560, 9728) dim 1 over ("model",
-    "data"[, "pod"]): the same columns a rank in both packages. JAX orders
-    the blocks by the spec (model-major); DTensor by mesh dim (pod, data,
-    model). This process is rank 18: data 1, model 2 (pod 0)."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    "data"[, "pod"]). DTensor splits by mesh dim, (pod,) data, model; the
+    port's placements make the data and pod axes strided shards, so that
+    every rank holds JAX's block, model-major: a slice of its own `model`
+    shard (plain ``Shard``s would put it on the data-major block). Probed
+    at six ranks of both meshes."""
     sizes = _sizes(fake_mesh)
-    spec = sh._leaf_spec(["w1"], _leaf((2560, 9728)), fake_mesh, extra_axes=sh.ZERO_AXES)
-    axes = spec[1]
-    assert axes == tuple(a for a in ("model", "data", "pod") if a in sizes)
-    cols = 9728 // int(np.prod([sizes[a] for a in axes]))
-    local, offset = compute_local_shape_and_global_offset(
-        (2560, 9728), fake_mesh, sh.to_placements(spec, fake_mesh))
-    coords = dict(zip(fake_mesh.mesh_dim_names, fake_mesh.get_coordinate()))
-    assert coords["data"] == 1 and coords["model"] == 2
-    assert tuple(local) == (2560, cols)
-    mesh_order = [a for a in fake_mesh.mesh_dim_names if a in axes]
-    assert offset[1] == _block(coords, mesh_order, sizes) * cols      # DTensor
-    assert offset[1] != _block(coords, axes, sizes) * cols            # JAX's block
+    shape = (2560, 9728)
+    spec = sh._leaf_spec(["w1"], _leaf(shape), fake_mesh, extra_axes=sh.ZERO_AXES)
+    assert spec[1] == tuple(a for a in ("model", "data", "pod") if a in sizes)
+    _check_blocks(fake_mesh, shape, 1, spec, ("data", "pod"))
+    cols, model_cols = 9728 // int(np.prod(list(sizes.values()))), 9728 // sizes["model"]
+    for rank in PROBED:
+        if rank < fake_mesh.size():
+            coords = dict(zip(fake_mesh.mesh_dim_names, _coords(fake_mesh, rank)))
+            start = _block(coords, spec[1], sizes) * cols
+            assert coords["model"] * model_cols <= start < (coords["model"] + 1) * model_cols
+
+
+def test_batch_shards_sit_on_jax_blocks(fake_mesh):
+    """``batch``'s ("pod", "data") on the train_4k batch (256, 4096) dim 0
+    follows the mesh's order: plain ``Shard``s, each rank on JAX's block."""
+    sizes = _sizes(fake_mesh)
+    spec = (sh.batch_spec(256, fake_mesh), None)
+    assert spec[0] == tuple(a for a in ("pod", "data") if a in sizes)
+    _check_blocks(fake_mesh, (256, 4096), 0, spec, ())
+
+
+def test_one_rank_mesh_needs_no_stride():
+    """On a (1, 1) mesh every split factor is one: plain ``Shard``s, the
+    layout the card's one-rank mesh trains on."""
+    mesh = SimpleNamespace(shape={"data": 1, "model": 1})
+    spec = sh._leaf_spec(["w1"], _leaf((256, 512)), mesh, extra_axes=sh.ZERO_AXES)
+    assert spec == (None, ("model", "data"))
+    assert sh.to_placements(spec, mesh) == (sh.Shard(1), sh.Shard(1))
+
+
+def _zero1_leaf(mesh):
+    """Reduced qwen3-4b's stacked w1 (layers, d, d_ff) on ``mesh`` with its
+    ZeRO-1 moments, and a gradient laid out as the backward leaves it: a
+    sum pending over the batch ranks, the parameter's `model` shard."""
+    from torch.distributed.tensor import DTensor, Partial
+    specs = Model(get_config("qwen3-4b").reduced()).param_specs()
+    w1 = next(t for names, t in _port_leaves(specs) if names[-1] == "w1")
+    params = sh.param_shardings({"w1": torch.zeros(w1.shape, dtype=torch.float32)}, mesh)
+    p = params["w1"]
+    opt = sh.zero1_adamw_init(params, mesh)
+    assert opt.m["w1"].placements != p.placements        # ZeRO-1 splits the model shard
+    placements = [pl if pl.is_shard() else Partial() for pl in p.placements]
+    g = DTensor.from_local(torch.ones(p.to_local().shape), mesh, placements, run_check=False,
+                           shape=p.shape, stride=p.stride())
+    return params, {"w1": g}, opt, p.to_local().numel()
+
+
+def test_zero1_update_stays_in_the_model_shard(fake_mesh):
+    """``adamw_update`` on a leaf whose moments ZeRO-1 splits along its
+    `model` dim: one reduce-scatter (the gradient into the moments'
+    layout) and one all-gather (the update back), over the ZeRO ranks,
+    seen by a ``CommDebugMode``; no all-gather result larger than the
+    leaf's `model` shard."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.dryrun import RankCounter
+    from repro_torch.training.optimizer import adamw_update
+    params, grads, opt, shard = _zero1_leaf(fake_mesh)
+    with CommDebugMode() as comm:
+        adamw_update(params, grads, opt, lr=1e-3)
+    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    assert counts.get("reduce_scatter_tensor", 0) <= 1, counts
+    assert counts.get("all_gather_into_tensor", 0) == 1, counts
+    counter = RankCounter()
+    with counter:
+        with counter.span("opt"):
+            adamw_update(params, grads, opt, lr=1e-3)
+    span = counter.spans["opt"]
+    assert span["calls"]["reduce-scatter"] <= 1 and span["calls"]["all-gather"] == 1
+    assert 0 < span["largest_result"]["all-gather"] <= shard * 4, (span, shard)
+
+
+def test_zero1_update_creates_nothing_past_the_shard_in_float32(fake_mesh):
+    """``RankCounter`` (``launch/dryrun.py``) over the update: rank 0's
+    largest storage created inside ``adamw_update`` is at most the leaf's
+    `model` shard in float32 (the parent gathered the whole leaf)."""
+    from repro_torch.launch.dryrun import RankCounter
+    from repro_torch.training.optimizer import adamw_update
+    params, grads, opt, shard = _zero1_leaf(fake_mesh)
+    counter = RankCounter()
+    with counter:
+        counter.watch((params, grads, opt))
+        with counter.span("adamw_update"):
+            adamw_update(params, grads, opt, lr=1e-3)
+    largest = counter.spans["adamw_update"]["largest_storage"]
+    assert 0 < largest <= shard * 4, (largest, shard)
