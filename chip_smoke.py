@@ -21,13 +21,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      qwen3-moe's G 8, Hkv 4; musicgen-medium's MHA of 24 heads at hd 64,
      B 1, 8 and 32), at long context (B 2, 512-page tables) and
      with more splits than live tiles, and on the cases of
-     tests/test_kernels.py, garbage pages included;
+     tests/test_kernels.py, garbage pages included; and at query groups
+     past 8, which the decode kernels take in slices of 8 rows: granite-34b's
+     MQA (Hq 48, Hkv 1, six slices), llama4-scout's G 5 (Hq 40, Hkv 8), and
+     G 9 and G 12 (a short last slice), in bf16 and float32, B 1, 8 and 32
+     and long context, garbage pages included, the prefill at all four;
   4. attention kernel time beside its bound, the plain version's time and
      ``scaled_dot_product_attention``'s (a yardstick the port never calls):
      decode at the serve's B 8, at B 32 and at long context (B 2, contexts
      8192 and 5000), split-K also at 1, 2, 4 and 8 splits; and the prefill
      tile height not taken; decode at B 8 and prefill also at codeqwen's
-     and musicgen-medium's MHA shapes;
+     and musicgen-medium's MHA shapes, and at granite-34b's MQA shape
+     (decode at B 8 and at long context);
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
@@ -35,9 +40,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      decode step and a prefill chunk of the first (one split-K cluster
      launch a layer and no merge kernel in the decode step, one prefill
      launch a layer in the chunk), and of a decode step of the second;
-  6. token parity of a tiny float32 attention model between the CPU (plain
-     versions) and the card (kernels), and again on the card with host-tier
-     swap; and CPU against card with the legacy decode schedule;
+  6. token parity of tiny float32 attention models, G 2 and G 48 (48
+     query heads on one kv head), between the CPU (plain versions) and the
+     card (kernels), and again on the card with host-tier swap; and CPU
+     against card with the legacy decode schedule;
   7. the SSD chunk-scan kernel against its plain chunked version in float32:
      the cases of tests/test_kernels.py and mamba2-1.3b's shape (B 1, H 64,
      P 64, N 128, chunk 64, S 64 / 128 / 512), each from a zero and a random
@@ -96,6 +102,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
  19. serve full-width yi-9b (48 layers, G 8) and codeqwen1.5-7b (32 layers,
      MHA) through ``EchoEngine`` with a smaller mix, the checks of phase 5,
      and a profile of a decode step and a prefill chunk of each;
+ 19b. serve granite-34b at full width (d 6144, MQA: 48 query heads of hd
+     128 on one kv head, d_ff 24576, vocab 49152, bf16, seeded random
+     weights) with its depth cut to 56 of 88 layers (60.0 GB of weights;
+     88 would be 93.9 GB), or to 48 if the freed card cannot hold 56 (the
+     phase's name then says so), with phase 19's mix and checks; the init's
+     peak over the weights and the pool's size; a profile of a decode step
+     (one split-K launch a layer, no plain version) and a prefill chunk
+     (one prefill launch a layer); then the same mix with
+     ``attn_impl="pallas"`` and a profiled decode step through the legacy
+     kernel only, beside the card's name and power limit;
  20. serve full-width musicgen-medium (48 layers, d 1536, 24 heads of hd 64,
      bf16, seeded random weights) through ``EchoEngine`` with phase 5's mix
      and checks, an ``EngineProbe`` and a ``Tracer`` attached: the probe
@@ -251,7 +267,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    default_num_splits, paged_attention, paged_attention_splitk)
+    default_num_splits, group_slices, paged_attention, paged_attention_splitk)
 from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -293,6 +309,14 @@ MG_H, MG_HD = 24, 64
 # embeddings, then decode steps; bf16 against a float32 copy of the weights
 # must stay within DENSE_REL_LIMIT (relative norm of the logits)
 MM_S, MM_FRAMES, MM_STEPS, DENSE_REL_LIMIT = 128, 32, 8, 0.1
+# query groups past 8 (Hq, Hkv, hd): granite-34b's MQA (G 48, six slices of
+# 8 rows), llama4-scout's G 5, then G 9 and G 12, whose last slice is short
+GRANITE_HQ, GRANITE_HKV = 48, 1
+MQA_HEADS = [(GRANITE_HQ, GRANITE_HKV, HD), (40, 8, HD), (9, 1, HD), (24, 2, 64)]
+# phase 19b: granite-34b at full width with its depth cut (88 layers are
+# 93.9 GB in bf16), and the cut taken if the freed card cannot hold that
+# (weights, pool, the init's float32 temporary and this much more)
+GRANITE_LAYERS, GRANITE_LAYERS_FALLBACK, GRANITE_HEADROOM = 56, 48, 4 << 30
 # the two replicas of phase 22: device pool and host tier, in blocks, each
 REP_BLOCKS = 256
 # the serves' request mixes: (prompt length, arrival s) of the online
@@ -523,27 +547,20 @@ def phase_kernels(gen):
         (1, 1, MAX_PAGES * BS), (8, 1, MAX_PAGES * BS), (32, 1, MAX_PAGES * BS),
         (8, 80, 120))]
     for b, lo, hi, nblk, splits, hq, hkv, hd in shapes:
-        ctx = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEV).tolist()
-        if hi == nblk * BS:
-            ctx[0] = hi
-        if b > 1:
-            ctx[-1] = 0
-        ins = decode_inputs(gen, b, hq, hkv, hd, BS, nblk, ctx, torch.bfloat16,
-                            NUM_BLOCKS)
-        live = ins[4] > 0
-        want = ref.ref_paged_attention(*ins)
-        for name, fn in (("paged_attention_splitk",
-                          lambda *a: paged_attention_splitk(*a, num_splits=splits)),
-                         ("paged_attention", paged_attention)):
-            got = fn(*ins)
-            check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
-            e = compare(f"{name} bf16 B={b} Hq={hq} Hkv={hkv} hd={hd} nblk={nblk} "
-                        f"ctx {lo}..{hi}"
-                        + (f" splits={splits}" if splits and fn is not paged_attention
-                           else ""), got, want, TOL["decode"][torch.bfloat16], live)
-            errs[name] = max(errs[name], e)
+        _decode_case(gen, errs, b, _ragged_ctx(gen, b, lo, hi, nblk), f"ctx {lo}..{hi}",
+                     nblk, splits, hq, hkv, hd, torch.bfloat16)
+    # query groups past 8 in both dtypes: B 1 up to the table, B 8 at the
+    # serve's contexts, B 32 ragged up to the table (a ctx-0 row), and at
+    # granite's shape long context (B 2, 8192 and 5000: a full cluster)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hq, hkv, hd in MQA_HEADS:
+            for b, lo, hi in ((1, 1, MAX_PAGES * BS), (8, 80, 120), (32, 1, MAX_PAGES * BS)):
+                _decode_case(gen, errs, b, _ragged_ctx(gen, b, lo, hi, MAX_PAGES),
+                             f"ctx {lo}..{hi}", MAX_PAGES, None, hq, hkv, hd, dtype)
+        _decode_case(gen, errs, 2, LONG_CTX, f"ctx {LONG_CTX}", LONG_NBLK, None,
+                     GRANITE_HQ, GRANITE_HKV, HD, dtype)
     for hq, hkv, hd in ((HQ, HKV, HD), (HQ, CQ_HKV, HD), (HQ, G8_HKV, HD),
-                        (MG_H, MG_H, MG_HD)):
+                        (MG_H, MG_H, MG_HD), *MQA_HEADS):
         for ctx in (0, 37, 448):
             ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, hq, hkv, hd, torch.bfloat16)
             want = ref.ref_chunked_prefill_attention(*ins, ctx)
@@ -555,12 +572,18 @@ def phase_kernels(gen):
                     chunked_prefill_attention(*ins, ctx, tile_rows=ALT_TILE_ROWS), want,
                     TOL["prefill"][torch.bfloat16])
     # the cases of tests/test_kernels.py, both dtypes
+    # then those of tests/test_torch_mqa.py: G 5, 9, 12 and 48
     decode_cases = [(2, 4, 4, 32, 8, 4, [32, 17]), (3, 8, 2, 64, 16, 6, [96, 5, 48]),
-                    (2, 8, 1, 32, 8, 5, [40, 3]), (4, 4, 1, 16, 4, 3, [12, 1, 7, 9])]
+                    (2, 8, 1, 32, 8, 5, [40, 3]), (4, 4, 1, 16, 4, 3, [12, 1, 7, 9]),
+                    (3, 10, 2, 16, 8, 5, [33, 5, 17]), (2, 9, 1, 32, 8, 4, [30, 3]),
+                    (3, 12, 1, 16, 4, 6, [24, 2, 9]), (3, 48, 1, 32, 16, 6, [5, 70, 96])]
     chunked_cases = [(64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37),
                      (32, 64, 2, 1, 64, 30), (100, 420, 4, 1, 32, 250),
                      (65, 131, 8, 2, 32, 66), (7, 16, 4, 4, 16, 9),
-                     (64, 192, 8, 8, 32, 128)]
+                     (64, 192, 8, 8, 32, 128),
+                     (16, 64, 10, 2, 16, 20), (13, 40, 9, 1, 32, 11),
+                     (24, 80, 12, 1, 16, 0), (32, 128, 48, 1, 32, 37),
+                     (7, 40, 48, 1, 16, 33), (64, 512, 48, 1, 128, 448)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, hq, hkv, hd, bs, nblk, ctx in decode_cases:
             ins = decode_inputs(gen, b, hq, hkv, hd, bs, nblk, ctx, dtype, nblk * b + 2)
@@ -584,29 +607,63 @@ def phase_kernels(gen):
     return errs
 
 
-def _garbage_pages(gen):
-    """tests/test_kernels.py's garbage-pages case, on both decode kernels:
-    pages the table does not reference, and for the legacy kernel a table
-    entry past the context pointing far outside the pool, change nothing."""
-    b, hq, hkv, hd, bs, p = 1, 2, 1, 16, 8, 6
-    q = torch.randn((b, hq, hd), generator=gen, device=DEV)
-    kp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV)
-    vp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV)
-    bt = torch.tensor([[1, 3]], dtype=torch.int32, device=DEV)
-    cl = torch.tensor([12], dtype=torch.int32, device=DEV)
-    kp2, vp2 = kp.clone(), vp.clone()
-    kp2[0], kp2[2], vp2[4] = 999.0, -999.0, 123.0
-    far = torch.tensor([[1, 3, 1 << 30]], dtype=torch.int32, device=DEV)
-    for name, fn in (("paged_attention_splitk", paged_attention_splitk),
+def _ragged_ctx(gen, b, lo, hi, nblk):
+    """B contexts drawn from lo..hi; a full table in the first row when hi
+    is the table's width, and ctx 0 (a padded row) in the last when B > 1."""
+    ctx = torch.randint(lo, hi + 1, (b,), generator=gen, device=DEV).tolist()
+    if hi == nblk * BS:
+        ctx[0] = hi
+    if b > 1:
+        ctx[-1] = 0
+    return ctx
+
+
+def _decode_case(gen, errs, b, ctx, what, nblk, splits, hq, hkv, hd, dtype):
+    """Both decode kernels against the plain version on one input: ctx-0
+    rows must come out zero, the live rows within phase 3's tolerances."""
+    ins = decode_inputs(gen, b, hq, hkv, hd, BS, nblk, ctx, dtype, NUM_BLOCKS)
+    live = ins[4] > 0
+    want = ref.ref_paged_attention(*ins)
+    for name, fn in (("paged_attention_splitk",
+                      lambda *a: paged_attention_splitk(*a, num_splits=splits)),
                      ("paged_attention", paged_attention)):
-        out1, out2 = fn(q, kp, vp, bt, cl), fn(q, kp2, vp2, bt, cl)
-        same = bool(torch.equal(out1, out2))
-        if fn is paged_attention:
-            same &= bool(torch.equal(out1, fn(q, kp, vp, far, cl)))
-        print(f"  {name} garbage pages: output unchanged {same}")
-        check(same, f"{name}: unreferenced pages reached the output")
-        compare(f"{name} garbage-pages case", out1,
-                ref.ref_paged_attention(q, kp, vp, bt, cl), TOL["decode"][torch.float32])
+        got = fn(*ins)
+        check(bool((got[~live] == 0).all()), f"{name}: a ctx=0 row is not zero")
+        e = compare(f"{name} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} hd={hd} "
+                    f"nblk={nblk} {what}"
+                    + (f" splits={splits}" if splits and fn is not paged_attention
+                       else ""), got, want, TOL["decode"][dtype], live)
+        errs[name] = max(errs[name], e)
+
+
+def _garbage_pages(gen):
+    """tests/test_kernels.py's garbage-pages case, on both decode kernels,
+    then at granite-34b's head shape (48 query heads on one kv head, six
+    slices) in both dtypes: pages the table does not reference, and a table
+    entry past the context pointing far outside the pool, change nothing."""
+    cases = [(1, 2, 1, 16, 8, 6, [[1, 3]], [12], torch.float32)]
+    cases += [(2, GRANITE_HQ, GRANITE_HKV, HD, BS, 12, [[1, 3, 5], [7, 9, 11]], [40, 20],
+               dt) for dt in (torch.bfloat16, torch.float32)]
+    for b, hq, hkv, hd, bs, p, table, ctx, dtype in cases:
+        q = torch.randn((b, hq, hd), generator=gen, device=DEV).to(dtype)
+        kp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV).to(dtype)
+        vp = torch.randn((p, bs, hkv, hd), generator=gen, device=DEV).to(dtype)
+        bt = torch.tensor(table, dtype=torch.int32, device=DEV)
+        cl = torch.tensor(ctx, dtype=torch.int32, device=DEV)
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[0], kp2[2], vp2[4] = 999.0, -999.0, 123.0
+        far = torch.cat([bt, torch.full((b, 1), 1 << 30, dtype=torch.int32,
+                                        device=DEV)], 1)
+        for name, fn in (("paged_attention_splitk", paged_attention_splitk),
+                         ("paged_attention", paged_attention)):
+            out1, out2 = fn(q, kp, vp, bt, cl), fn(q, kp2, vp2, bt, cl)
+            same = bool(torch.equal(out1, out2)) and bool(
+                torch.equal(out1, fn(q, kp, vp, far, cl)))
+            what = f"{name} {str(dtype)[6:]} Hq={hq} Hkv={hkv} garbage-pages case"
+            print(f"  {what}: output unchanged {same}")
+            check(same, f"{what}: unreferenced pages reached the output")
+            compare(what, out1, ref.ref_paged_attention(q, kp, vp, bt, cl),
+                    TOL["decode"][dtype])
 
 
 def _sdpa_decode(q, kp, vp, bt, cl):
@@ -638,7 +695,7 @@ def _decode_rows(gen, errs, b, ctx, nblk=MAX_PAGES, hkv=HKV, hq=HQ, hd=HD):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     shape = (f"B={b} Hq={hq} Hkv={hkv} hd={hd} bs={BS} nblk={nblk} "
              f"sum(ctx)={sum(ctx)} bf16, default splits "
-             f"{default_num_splits(b, hkv, nblk, BS, sms)}")
+             f"{default_num_splits(b, hkv, nblk, BS, sms, hq // hkv)}")
     splits_ms = {n: time_ms(lambda: paged_attention_splitk(*ins, num_splits=n))
                  for n in (1, 2, 4, 8)}
     common = dict(
@@ -693,7 +750,9 @@ def phase_timing(gen, errs):
     phase("4 kernel time")
     # decode as the serve runs it (batch 8, contexts near 100), then a
     # full batch of 32 with ragged contexts up to the table, long context,
-    # and batch 8 at codeqwen's MHA shape and at musicgen-medium's
+    # batch 8 at codeqwen's MHA shape and at musicgen-medium's, and
+    # granite-34b's MQA (48 query heads on one kv head) at batch 8 and at
+    # long context
     def serve_ctx():
         return torch.randint(80, 121, (8,), generator=gen, device=DEV).tolist()
     rows = (_decode_rows(gen, errs, 8, serve_ctx())
@@ -701,15 +760,19 @@ def phase_timing(gen, errs):
                 1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
             + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK)
             + _decode_rows(gen, errs, 8, serve_ctx(), hkv=CQ_HKV)
-            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=MG_H, hq=MG_H, hd=MG_HD))
-    # prefill at qwen3-4b's shape, then at codeqwen's MHA shape and at
-    # musicgen-medium's
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=MG_H, hq=MG_H, hd=MG_HD)
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=GRANITE_HKV, hq=GRANITE_HQ)
+            + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK, hkv=GRANITE_HKV,
+                           hq=GRANITE_HQ))
+    # prefill at qwen3-4b's shape, then at codeqwen's MHA shape, at
+    # musicgen-medium's and at granite-34b's MQA
     rows += [_prefill_row(gen, errs, HKV), _prefill_row(gen, errs, CQ_HKV),
-             _prefill_row(gen, errs, MG_H, hq=MG_H, hd=MG_HD)]
+             _prefill_row(gen, errs, MG_H, hq=MG_H, hd=MG_HD),
+             _prefill_row(gen, errs, GRANITE_HKV, hq=GRANITE_HQ)]
     for r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms"
               + (", splits " + ", ".join(f"{n}: {t:.4f}" for n, t in r["splits_ms"].items())
                  + " ms" if "splits_ms" in r else "")
@@ -852,36 +915,58 @@ def phase_serve():
     print(f"init: {cfg.num_layers} layers d={cfg.d_model} vocab={cfg.vocab_size} "
           f"{cfg.dtype}, {cfg.param_count / 1e9:.2f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
-    online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SERVE_MIX)
+    launches, (online, stats, wall) = _serve_both_schedules(model, params, SERVE_MIX)
     # what phase 23's front door is held against: the engine's own loop
     engine_loop = dict(tpot=float(np.mean([r.tpot() for r in online])),
                        iter_ms=wall / len(stats.iterations) * 1e3)
+    del params
+    torch.cuda.empty_cache()
+    return launches, engine_loop
+
+
+def _no_plain_attention(what):
+    check(ref.ref_paged_attention.cuda_calls == 0
+          and ref.ref_chunked_prefill_attention.cuda_calls == 0,
+          f"{what} ran a plain attention on the card")
+
+
+def _serve_both_schedules(model, params, mix):
+    """``mix`` through ``_serve_paged`` with split-K decode, then with the
+    legacy decode kernel (``attn_impl="pallas"``); a profile of a decode
+    step and a prefill chunk of the first (one split-K cluster launch a
+    layer and no merge kernel in the decode step, one prefill launch a
+    layer in the chunk) and of a decode step of the second (one legacy
+    launch a layer), none running a plain version on the card. Returns the
+    serves' kernel launches and the first serve's (online, stats, wall)."""
+    layers = model.cfg.num_layers
+    online, offline, eng, stats, wall = _serve_paged(model, params, "auto", mix)
     launches = {"paged_attention_splitk": paged_attention_splitk.launches,
                 "chunked_prefill_attention": chunked_prefill_attention.launches}
     check(min(launches.values()) > 0, "a kernel of the path never launched")
     _print_serve(online, offline, stats, wall)
     attn = (SPLITK_DECODE, PREFILL_TC, LEGACY_DECODE, "merge")
+    _reset_counts()
     traces = _profile_steps(_attention_steps(eng.runner), attn[:2], "attention kernels")
+    _no_plain_attention("a profiled step of the split-K serve")
     seen = {k: _launches(v, attn) for k, v in traces.items()}
-    print(f"  attention launches per profiled step: {seen}")
-    check(all(n == cfg.num_layers for n in seen.values()),
+    print(f"  attention launches per profiled step: {seen}; {_smi()}")
+    check(all(n == layers for n in seen.values()),
           f"a profiled step launched other than one attention kernel a layer: {seen}")
     decode_trace = traces["decode B=8 ctx=101"]
-    check(_launches(decode_trace, (SPLITK_DECODE,)) == cfg.num_layers
+    check(_launches(decode_trace, (SPLITK_DECODE,)) == layers
           and not _launches(decode_trace, ("merge",)),
           "the split-K decode step is not one cluster launch a layer")
     del eng
     torch.cuda.empty_cache()
 
-    # the same mix through the legacy decode kernel
     print("serve again with attn_impl='pallas' (legacy decode schedule)")
-    on2, off2, eng, _, wall = _serve_paged(model, params, "pallas", SERVE_MIX)
+    on2, off2, eng, _, wall2 = _serve_paged(model, params, "pallas", mix)
     check(paged_attention_splitk.launches == 0,
           "the split-K kernel launched in the legacy-schedule serve")
     launches["paged_attention"] = paged_attention.launches
     pairs = [(a, b) for r1, r2 in zip(online + offline, on2 + off2)
              for a, b in zip(r1.output_tokens, r2.output_tokens)]
-    print(f"  {wall:.3f} s wall; online TTFT s mean "
+    print(f"  {wall2:.3f} s wall; online TTFT s mean "
           f"{np.mean([r.ttft() for r in on2]):.4f}, TPOT s mean "
           f"{np.mean([r.tpot() for r in on2]):.4f}; output tokens equal to the "
           f"split-K serve's: {sum(a == b for a, b in pairs)} of {len(pairs)} "
@@ -889,11 +974,14 @@ def phase_serve():
     decode = {k: fn for k, fn in _attention_steps(eng.runner).items()
               if k.startswith("decode")}
     traces = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
-    check(all(_launches(v, (LEGACY_DECODE,)) for v in traces.values()),
-          f"the legacy decode step launched no {LEGACY_DECODE}")
-    del eng, params
+    check(all(_launches(v, (LEGACY_DECODE,)) == layers for v in traces.values()),
+          f"the legacy decode step is not one {LEGACY_DECODE} a layer")
+    _no_plain_attention("a profiled step of the legacy serve")
+    check(paged_attention_splitk.launches == 0,
+          "the split-K kernel launched in the legacy serve's profiled step")
+    del eng
     torch.cuda.empty_cache()
-    return launches, engine_loop
+    return launches, (online, stats, wall)
 
 
 def _print_serve(online, offline, stats, wall):
@@ -1012,11 +1100,17 @@ def _tiny_engine_tokens(model, params, device, swap, attn_impl="auto"):
 
 
 def phase_parity():
-    phase("6 CPU vs CUDA token parity (tiny float32)")
-    cfg = ModelConfig(name="tiny-dense", family="dense", source="test",
-                      num_layers=2, d_model=64, vocab_size=128, num_heads=4,
-                      num_kv_heads=2, head_dim=16, d_ff=128, dtype="float32",
-                      rope_theta=10_000.0)
+    phase("6 CPU vs CUDA token parity (tiny float32, G 2 and G 48)")
+    for hq, hkv in ((4, 2), (GRANITE_HQ, GRANITE_HKV)):
+        cfg = ModelConfig(name=f"tiny-dense-g{hq // hkv}", family="dense",
+                          source="test", num_layers=2, d_model=64, vocab_size=128,
+                          num_heads=hq, num_kv_heads=hkv, head_dim=16, d_ff=128,
+                          dtype="float32", rope_theta=10_000.0)
+        print(f"  {cfg.name}: Hq {hq}, Hkv {hkv}")
+        _tiny_parity(cfg)
+
+
+def _tiny_parity(cfg):
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     cuda_params = tree_map(lambda t: t.to(DEV), params)
@@ -1043,6 +1137,7 @@ def phase_parity():
           f"{gpu_legacy}")
     check(paged_attention.launches > 0 and paged_attention_splitk.launches == splitk,
           "the legacy-schedule engine did not decode through the legacy kernel only")
+    _no_plain_attention("a tiny engine on the card")
     print(f"  legacy schedule: tokens equal on CPU and CUDA: {cpu_legacy}")
 
 
@@ -1776,6 +1871,48 @@ def phase_parity_moe():
               f"{m.swapped_in_tokens} tokens; tokens equal on CPU and CUDA: "
               f"{cpu_tokens}; on CPU+swap and CUDA+swap: {swap_tokens} (the swap "
               f"schedule {'changed' if swap_tokens != cpu_tokens else 'kept'} them)")
+
+
+def _granite_layers():
+    """granite-34b's depth for phase 19b: GRANITE_LAYERS if the card, with
+    earlier phases' memory released, holds their weights, the pool, the
+    init's float32 temporary and GRANITE_HEADROOM; else
+    GRANITE_LAYERS_FALLBACK. Returns (layers, why)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    cfg = dataclasses.replace(get_config("granite-34b"), num_layers=GRANITE_LAYERS)
+    need = (2 * cfg.param_count + 4 * cfg.vocab_size * cfg.d_model + GRANITE_HEADROOM
+            + Model(cfg).cache_bytes(1, 1) * BS * NUM_BLOCKS)
+    if free >= need:
+        return GRANITE_LAYERS, f"{free / 1e9:.2f} GB free, {need / 1e9:.2f} GB needed"
+    return GRANITE_LAYERS_FALLBACK, (f"{free / 1e9:.2f} GB free, under the "
+                                     f"{need / 1e9:.2f} GB {GRANITE_LAYERS} layers need")
+
+
+def phase_serve_granite():
+    """granite-34b at full width, its depth cut, through EchoEngine with
+    both decode schedules. Returns the split-K, legacy and prefill launches
+    of its serves."""
+    layers, why = _granite_layers()
+    cut = (f"depth cut to {layers} layers" if layers == GRANITE_LAYERS
+           else f"depth cut to {layers} layers ({why})")
+    phase(f"19b serve granite-34b at full width, {cut}")
+    print(f"  depth: {why}")
+    _free_card("the granite-34b init")
+    model, params = _init_full_width(
+        dataclasses.replace(get_config("granite-34b"), num_layers=layers))
+    cfg = model.cfg
+    g = cfg.num_heads // cfg.num_kv_heads
+    print(f"  G {g} ({cfg.num_heads} query heads on {cfg.num_kv_heads} kv head, "
+          f"{group_slices(g)} slices of 8 a decode CTA); pool {NUM_BLOCKS} blocks x "
+          f"{BS} tokens = {model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
+    launches, _ = _serve_both_schedules(model, params, SMALL_MIX)
+    print(f"  (split-K, legacy, prefill) launches: ({launches['paged_attention_splitk']}, "
+          f"{launches['paged_attention']}, {launches['chunked_prefill_attention']})")
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve_dense():
@@ -3313,6 +3450,7 @@ def main():
     del model, params
     phase_parity_moe()
     phase_serve_dense()
+    phase_serve_granite()
     model, params = phase_serve_musicgen()
     phase_dense_multimodal(model, params)
     phase_replicas(model, params)

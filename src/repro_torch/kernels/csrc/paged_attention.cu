@@ -5,16 +5,19 @@
 // head) over the row's pages on the grid (B, Hkv, nblk). Same contract as
 // the split-K kernel: q (B,Hq,hd); k/v pages (P,bs,Hkv,hd) float32 or
 // bfloat16; block_tables (B,nblk) int32; ctx_lens (B,) int32 -> (B,Hq,hd)
-// in q's dtype. Query head h reads kv head h / G, G = Hq/Hkv; scale
-// 1/sqrt(hd).
+// in q's dtype. Query head h reads kv head h / G, G = Hq/Hkv, any G >= 1;
+// scale 1/sqrt(hd).
 //
 // What bounds it on the card: bytes. A decode step reads every live KV row
 // once, about G flops per byte, far under the ~295 the H100 needs to be
-// compute bound. The legacy contract is kept: one launch, grid (Hkv, B),
-// one CTA per (kv head, sequence), normalise and cast in the same launch,
-// no partials in device memory and no merge launch. So a long row is read
-// by one SM, and what matters is how many of its bytes are in flight at
-// once and how few instructions each byte costs. The first version walked
+// compute bound. The legacy contract is kept: one launch, grid
+// (Hkv * ceil(G / 8), B), one CTA per (kv head, slice of at most 8 of its
+// query rows, sequence), normalise and cast in the same launch, no partials
+// in device memory and no merge launch (paged::GroupSlice: a group of up
+// to 8 is one slice, the reference's (kv head, sequence); MQA's G 48 is
+// six, each reading the row's K/V again, mostly from L2). So a long row is
+// read by one SM a slice, and what matters is how many of its bytes are in
+// flight at once and how few instructions each byte costs. The first version walked
 // a row one 16-token page at a time through float32 shared memory, a full
 // device-memory round trip per page. Now (paged_warp_walk.cuh, whose walk
 // the split-K kernel shares; this kernel walks all of a row's tiles and
@@ -26,8 +29,8 @@
 //     into a ring in shared memory while it multiplies the tile that has
 //     landed; its block-table entries come 32 at a time by shuffles;
 //   * bf16 runs both products on the tensor cores (mma.sync.m16n8k16, 16
-//     tokens by up to 8 query rows), since an FMA body of every lane (a
-//     full-hd dot product per (row, token) pair, then hd/32 columns of P.V)
+//     tokens by the slice's up to 8 query rows), since an FMA body of every
+//     lane (a full-hd dot product per (row, token) pair, then hd/32 columns of P.V)
 //     issued too many instructions per byte to keep 32 pages a row in
 //     flight: at B 32 four and eight warps a CTA took the same time;
 //   * pages at or past the context are never copied and their table entries
@@ -58,29 +61,30 @@ paged_warp_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                         const int* __restrict__ ctx_lens, T* __restrict__ out,
                         int hq, int hkv, int bs, int nblk, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const paged::GroupSlice sl = paged::group_slice(blockIdx.x, hq / hkv);
+  const int b = blockIdx.y;
+  const int g_size = sl.rows;
   const int* pages = block_tables + (size_t)b * nblk;
   const int ctx = ctx_lens[b];
+  // the slice's first output row
+  T* orow = out + ((size_t)b * hq + (size_t)sl.h * (hq / hkv) + sl.g0) * HD;
   if constexpr (sizeof(T) == 2) {
     // walk every tile of the row, then normalise the CTA's state and cast
     __shared__ warp_walk::CtaState state;
     const int n_tok = min(max(ctx, 0), nblk * bs);
-    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs,
+    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, sl, hq, hkv, bs,
                                       n_tok, 0, (n_tok + warp_walk::kTile - 1) /
                                       warp_walk::kTile, scale, smem, state);
     const float* acc = reinterpret_cast<const float*>(smem);
-    const int g_size = hq / hkv;
-    T* orow = out + ((size_t)b * hq + (size_t)h * g_size) * HD;
     for (int e = threadIdx.x; e < g_size * HD; e += kWarps * 32)
       orow[e] = __float2bfloat16(__fdividef(acc[e], fmaxf(state.l[e / HD], 1e-20f)));
   } else {
     using paged::acc_len;
-    __shared__ float l_s[paged::kMaxG];
-    const int g_size = hq / hkv;
+    __shared__ float l_s[paged::kSliceRows];
     const int tid = threadIdx.x;
     const int live = min(nblk, (max(ctx, 0) + bs - 1) / bs);
     float m, l, acc[acc_len<HD>()];
-    paged::attend_pages<T, HD>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs, ctx, 0,
+    paged::attend_pages<T, HD>(q, k_pages, v_pages, pages, b, sl, hq, hkv, bs, ctx, 0,
                                live, scale, m, l, acc);
     // normalise once; l_s hands each row's l to the threads that hold its
     // accumulator
@@ -91,9 +95,7 @@ paged_warp_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int j = 0; j < acc_len<HD>(); ++j) {
       const int e = tid + j * paged::kThreads;
       const int g = e / HD, d = e % HD;
-      if (g < g_size)
-        out[((size_t)b * hq + (size_t)h * g_size + g) * HD + d] =
-            acc[j] / fmaxf(l_s[g], 1e-20f);
+      if (g < g_size) orow[(size_t)g * HD + d] = acc[j] / fmaxf(l_s[g], 1e-20f);
     }
   }
 }
@@ -111,7 +113,7 @@ int launch_hd(const void* q, const void* k, const void* v, const int* bt,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  const dim3 grid(hkv, b);
+  const dim3 grid(hkv * paged::group_slices(hq / hkv), b);
   paged_warp_split_kernel<T, HD><<<grid, kWarps * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bt, cl, static_cast<T*>(out), hq, hkv, bs,
@@ -135,8 +137,9 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
 }  // namespace
 
 // C entry. The wrapper (repro_torch/kernels/paged_attention.py) has checked
-// shapes, dtypes, contiguity, alignment, G <= 8, bs in {4, 8, 16} and
-// hd in {16, 32, 64, 128}. Returns the cudaError_t of the launch.
+// shapes, dtypes, contiguity, alignment, Hq divisible by Hkv, bs in
+// {4, 8, 16} and hd in {16, 32, 64, 128}. Returns the cudaError_t of the
+// launch.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const void* block_tables,
                                const void* ctx_lens, void* out, int b, int hq,

@@ -3,11 +3,14 @@
 // live pages) and paged_attention.cu (the legacy schedule walks all of
 // them). Their bf16 instantiations walk with paged_warp_walk.cuh.
 //
-// One CTA of kThreads threads serves one (kv head h, sequence b) and its
-// G = Hq/Hkv query rows. Each K/V page is loaded once into shared memory
-// for all G rows; scores, the float32 online softmax (m, l) and the
-// accumulator stay in shared memory and registers. Layouts: q (B,Hq,hd);
-// k/v pages (P,bs,Hkv,hd), float32 or bfloat16; scale 1/sqrt(hd).
+// One CTA of kThreads threads serves one (kv head h, sequence b) and one
+// slice of at most kSliceRows of its G = Hq/Hkv query rows (GroupSlice:
+// a kv head's rows in ceil(G / kSliceRows) slices, one CTA each, so any G
+// runs; MQA's G 48 is six slices, each walking the row's K/V again).
+// Each K/V page is loaded once into shared memory for the slice's rows;
+// scores, the float32 online softmax (m, l) and the accumulator stay in
+// shared memory and registers. Layouts: q (B,Hq,hd); k/v pages
+// (P,bs,Hkv,hd), float32 or bfloat16; scale 1/sqrt(hd).
 
 #pragma once
 
@@ -18,15 +21,29 @@
 namespace paged {
 
 constexpr int kThreads = 128;
-constexpr int kMaxG = 8;     // query rows per kv head
-constexpr int kMaxBs = 16;   // tokens per page
+constexpr int kSliceRows = 8;  // query rows a CTA holds: the 8 columns of the
+                               // bf16 walk's mma.m16n8k16
+constexpr int kMaxBs = 16;     // tokens per page
 constexpr float kNegInf = -1e30f;
 
+// A CTA's query rows: kv head h's group members g0 .. g0 + rows - 1, that
+// is query heads h * G + g0 onwards. Grid index i = h * slices + s.
+struct GroupSlice {
+  int h, g0, rows;
+};
+__host__ __device__ inline int group_slices(int g) {
+  return (g + kSliceRows - 1) / kSliceRows;
+}
+__device__ inline GroupSlice group_slice(int i, int g) {
+  const int n = group_slices(g), s = i % n;
+  return {i / n, s * kSliceRows, min(kSliceRows, g - s * kSliceRows)};
+}
+
 // accumulator elements a thread holds: element e = tid + j * kThreads of the
-// (G, HD) tile is row e / HD, column e % HD
+// (rows, HD) tile is row e / HD, column e % HD
 template <int HD>
 __host__ __device__ constexpr int acc_len() {
-  return (kMaxG * HD + kThreads - 1) / kThreads;
+  return (kSliceRows * HD + kThreads - 1) / kThreads;
 }
 
 // four consecutive elements as float (16-byte aligned for float32, 8-byte
@@ -43,30 +60,31 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Walk pages [first, end) of row b (``pages`` is the row's block table) in
-// order with one running softmax; the caller has clipped end to the live
-// pages (page i is live iff i*bs < ctx), so no page past the context is
-// read. On return ``acc`` holds this thread's share of the unnormalised
-// accumulator, and m, l the running max and sum of query row tid / bs (the
-// same on all of that row's bs lanes; meaningful where tid / bs < G).
+// order with one running softmax for the slice ``sl``'s query rows; the
+// caller has clipped end to the live pages (page i is live iff i*bs < ctx),
+// so no page past the context is read. On return ``acc`` holds this
+// thread's share of the unnormalised accumulator, and m, l the running max
+// and sum of the slice's row tid / bs (the same on all of that row's bs
+// lanes; meaningful where tid / bs < sl.rows).
 template <typename T, int HD>
 __device__ __forceinline__ void attend_pages(
     const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ pages, int b, int h,
-    int hq, int hkv, int bs, int ctx, int first, int end, float scale,
-    float& m, float& l, float (&acc)[acc_len<HD>()]) {
+    const T* __restrict__ v_pages, const int* __restrict__ pages, int b,
+    GroupSlice sl, int hq, int hkv, int bs, int ctx, int first, int end,
+    float scale, float& m, float& l, float (&acc)[acc_len<HD>()]) {
   constexpr int kRow = HD + 4;                      // keeps float4 rows aligned
-  __shared__ __align__(16) float qs[kMaxG][kRow];
+  __shared__ __align__(16) float qs[kSliceRows][kRow];
   __shared__ __align__(16) float ks[kMaxBs][kRow];
   __shared__ __align__(16) float vs[kMaxBs][HD];
-  __shared__ __align__(16) float ps[kMaxG][kMaxBs];
-  __shared__ float alpha_s[kMaxG];
+  __shared__ __align__(16) float ps[kSliceRows][kMaxBs];
+  __shared__ float alpha_s[kSliceRows];
 
-  const int g_size = hq / hkv;
+  const int h = sl.h, g_size = sl.rows;
   const int tid = threadIdx.x;
+  const T* qrow = q + ((size_t)b * hq + (size_t)h * (hq / hkv) + sl.g0) * HD;
   for (int e = tid * 4; e < g_size * HD; e += kThreads * 4) {
     const int g = e / HD, d = e % HD;
-    *reinterpret_cast<float4*>(&qs[g][d]) =
-        load4(q + ((size_t)b * hq + (size_t)h * g_size + g) * HD + d);
+    *reinterpret_cast<float4*>(&qs[g][d]) = load4(qrow + (size_t)g * HD + d);
   }
 
   // score owner: bs consecutive lanes hold one query row, lane t its key t;

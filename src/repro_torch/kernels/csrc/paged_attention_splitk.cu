@@ -4,7 +4,8 @@
 // paged_attention_splitk (body _splitk_kernel, LSE merge at the end of the
 // wrapper). Same contract: q (B,Hq,hd); k/v pages (P,bs,Hkv,hd) float32 or
 // bfloat16; block_tables (B,nblk) int32; ctx_lens (B,) int32 -> (B,Hq,hd) in
-// q's dtype. Query head h reads kv head h / G, G = Hq/Hkv; scale 1/sqrt(hd).
+// q's dtype. Query head h reads kv head h / G, G = Hq/Hkv, any G >= 1;
+// scale 1/sqrt(hd).
 //
 // What bounds it on the card: bytes. A decode step reads every live KV row
 // once, ctx*Hkv*hd*2*itemsize per sequence per layer, and does 4*hd flops per
@@ -13,9 +14,10 @@
 // bytes are in flight at once, how few instructions each byte costs, and
 // that nothing but the KV crosses device memory (no partials, no second
 // launch to merge them):
-//   * one launch, grid (nsplit, Hkv, B): the nsplit CTAs of one (sequence,
-//     kv head) form one thread-block cluster (cudaLaunchKernelEx, at most 8
-//     CTAs, the portable cluster size; one split launches without a
+//   * one launch, grid (nsplit, Hkv * ceil(G / 8), B): the nsplit CTAs of
+//     one (sequence, kv head, slice of at most 8 of its query rows;
+//     paged::GroupSlice) form one thread-block cluster (cudaLaunchKernelEx,
+//     at most 8 CTAs, the portable cluster size; one split launches without a
 //     cluster, whose launch cost a microsecond at batch 8). Split s walks
 //     its share of the row's live 16-token tiles (a row's tiles in nsplit
 //     equal contiguous shares, so a short context spreads over every split
@@ -29,11 +31,12 @@
 //     bf16 or TF32 product meets);
 //   * after cluster.sync() each CTA reads every split's (m, l) and acc
 //     through distributed shared memory (map_shared_rank), merges them by
-//     log-sum-exp, normalises once by max(l, 1e-20) and stores its slice of
-//     the G x hd outputs; a second cluster.sync() keeps every CTA's shared
-//     memory alive until its peers have read it. No partial touches device
-//     memory. A split without live tiles contributes (acc 0, m -1e30, l 0),
-//     the identity of the merge; a row with ctx = 0 comes out as zeros.
+//     log-sum-exp, normalises once by max(l, 1e-20) and stores its share of
+//     the slice's rows x hd outputs; a second cluster.sync() keeps every
+//     CTA's shared memory alive until its peers have read it. No partial
+//     touches device memory. A split without live tiles contributes (acc 0,
+//     m -1e30, l 0), the identity of the merge; a row with ctx = 0 comes out
+//     as zeros.
 // The wrapper picks the number of splits: enough tiles per warp for its
 // ring, about two waves of resident CTAs, at most a cluster (8); at the
 // serve's table width that is one split.
@@ -56,7 +59,7 @@ static_assert(kWarps * 32 == paged::kThreads, "float32 walks with the CTA's thre
 template <typename T, int HD>
 __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(T) == 2 ? warp_walk::smem_bytes<HD, kWarps>()
-                        : (size_t)paged::kMaxG * HD * sizeof(float);
+                        : (size_t)paged::kSliceRows * HD * sizeof(float);
 }
 
 // one CTA an SM is all the launch bounds promise, as for the legacy kernel:
@@ -70,25 +73,26 @@ splitk_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                       int hq, int hkv, int bs, int nblk, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ warp_walk::CtaState state;
-  __shared__ float weight[kMaxSplits][paged::kMaxG];   // exp(m_s - max_s m_s)
-  __shared__ float inv_l[paged::kMaxG];
+  __shared__ float weight[kMaxSplits][paged::kSliceRows];  // exp(m_s - max_s m_s)
+  __shared__ float inv_l[paged::kSliceRows];
   cg::cluster_group cluster = cg::this_cluster();
   const int nsplit = gridDim.x;            // grid x = cluster x
   const bool clustered = nsplit > 1;       // one split launches without a cluster
   const int split = clustered ? (int)cluster.block_rank() : 0;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g_size = hq / hkv;
+  const paged::GroupSlice sl = paged::group_slice(blockIdx.y, hq / hkv);
+  const int b = blockIdx.z;
+  const int g_size = sl.rows;
   const int tid = threadIdx.x;
   const int ctx = ctx_lens[b];
   const int* pages = block_tables + (size_t)b * nblk;
-  float* acc = reinterpret_cast<float*>(smem);         // (kMaxG, HD), this split's
+  float* acc = reinterpret_cast<float*>(smem);         // (kSliceRows, HD), this split's
 
   if constexpr (sizeof(T) == 2) {
     const int n_tok = min(max(ctx, 0), nblk * bs);
     const int tiles = (n_tok + warp_walk::kTile - 1) / warp_walk::kTile;
     const int share = (tiles + nsplit - 1) / nsplit;
     const int t0 = min(split * share, tiles);
-    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs,
+    warp_walk::walk_tiles<HD, kWarps>(q, k_pages, v_pages, pages, b, sl, hq, hkv, bs,
                                       n_tok, t0, min(t0 + share, tiles), scale, smem,
                                       state);
   } else {
@@ -98,7 +102,7 @@ splitk_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int share = (live + nsplit - 1) / nsplit;
     const int first = min(split * share, live);
     float m, l, a[acc_len<HD>()];
-    paged::attend_pages<T, HD>(q, k_pages, v_pages, pages, b, h, hq, hkv, bs, ctx, first,
+    paged::attend_pages<T, HD>(q, k_pages, v_pages, pages, b, sl, hq, hkv, bs, ctx, first,
                                min(first + share, live), scale, m, l, a);
 #pragma unroll
     for (int j = 0; j < acc_len<HD>(); ++j) {
@@ -131,8 +135,8 @@ splitk_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     inv_l[tid] = __fdividef(1.f, fmaxf(lsum, 1e-20f));
   }
   __syncthreads();
-  // this CTA's slice of the row's G x HD outputs
-  T* orow = out + ((size_t)b * hq + (size_t)h * g_size) * HD;
+  // this CTA's share of the slice's rows x HD outputs
+  T* orow = out + ((size_t)b * hq + (size_t)sl.h * (hq / hkv) + sl.g0) * HD;
   for (int e = split * paged::kThreads + tid; e < g_size * HD;
        e += nsplit * paged::kThreads) {
     const int g = e / HD;
@@ -157,7 +161,7 @@ int launch_hd(const void* q, const void* k, const void* v, const int* bt, const 
     attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, hkv, b);
+  cfg.gridDim = dim3(nsplit, hkv * paged::group_slices(hq / hkv), b);
   cfg.blockDim = dim3(kWarps * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -192,9 +196,9 @@ int launch(const void* q, const void* k, const void* v, const int* bt, const int
 }  // namespace
 
 // C entry. The wrapper (repro_torch/kernels/paged_attention.py) has checked
-// shapes, dtypes, contiguity, alignment, G <= 8, bs in {4, 8, 16},
-// hd in {16, 32, 64, 128} and 1 <= nsplit <= 8. Returns the cudaError_t of
-// the launch.
+// shapes, dtypes, contiguity, alignment, Hq divisible by Hkv, bs in
+// {4, 8, 16}, hd in {16, 32, 64, 128} and 1 <= nsplit <= 8. Returns the
+// cudaError_t of the launch.
 extern "C" int paged_attention_splitk(const void* q, const void* k_pages,
                                       const void* v_pages, const void* block_tables,
                                       const void* ctx_lens, void* out, int b, int hq,

@@ -1,19 +1,22 @@
 // A warp-split walk over a range of one row's 16-token tiles with the pages
 // in flight, Hopper sm_90a: the bf16 decode attention of one (kv head h,
-// sequence b) in one CTA. Both paged decode kernels walk with it: the
-// legacy kernel (paged_attention.cu) over all of a row's tiles, split-K
-// (paged_attention_splitk.cu) over one split's share. Their float32
-// instantiations walk with paged_attention_common.cuh instead.
+// sequence b) and one slice of at most 8 of its G query rows in one CTA
+// (paged::GroupSlice; a group of G > 8, MQA's 48, is ceil(G / 8) CTAs,
+// each walking the row's K/V again, mostly from L2). Both paged decode
+// kernels walk with it: the legacy kernel (paged_attention.cu) over all of
+// a row's tiles, split-K (paged_attention_splitk.cu) over one split's
+// share. Their float32 instantiations walk with paged_attention_common.cuh
+// instead.
 //
 // The CTA's kWarps warps divide the range's live tokens (those < ctx, in the
 // pages the table lists; a page at or past the context is never touched)
 // into contiguous shares of whole tiles of 16 tokens. Each warp walks its
-// share with its own float32 online softmax (m, l, acc) for the G query
-// rows, and the CTA combines the warps' states by log-sum-exp in shared
-// memory at the end. The walk leaves the CTA's state unnormalised: acc
-// (G, HD) float32 at the start of the dynamic shared memory and (m, l) per
-// query row in a CtaState, so the caller normalises it (legacy) or merges
-// it with other CTAs' states first (split-K). Per warp:
+// share with its own float32 online softmax (m, l, acc) for the slice's
+// query rows, and the CTA combines the warps' states by log-sum-exp in
+// shared memory at the end. The walk leaves the CTA's state unnormalised:
+// acc (rows, HD) float32 at the start of the dynamic shared memory and
+// (m, l) per query row in a CtaState, so the caller normalises it (legacy)
+// or merges it with other CTAs' states first (split-K). Per warp:
 //   * a ring of kStages tiles (K and V) in shared memory, filled with
 //     16-byte cp.async.cg, so the next kStages - 1 tiles are in flight while
 //     one is multiplied; rows are padded by 16 bytes, so lanes reading
@@ -23,8 +26,8 @@
 //     registers and handed out by shuffles, so no page copy waits on a
 //     dependent table load;
 //   * both products on the tensor cores, with the 16 tokens of a tile as
-//     the 16 rows of mma.m16n8k16 and the G <= 8 query rows as its 8
-//     columns: S^T = K Q^T (K by ldmatrix, Q^T held in registers), the
+//     the 16 rows of mma.m16n8k16 and the slice's <= 8 query rows as its
+//     8 columns: S^T = K Q^T (K by ldmatrix, Q^T held in registers), the
 //     online softmax in float32 on the S^T fragments, P^T moved into B
 //     fragments by movmatrix.trans and cast to bf16 (as the plain version
 //     casts the probabilities to q.dtype), O^T += V^T P^T (V by
@@ -40,12 +43,14 @@
 #pragma once
 
 #include "mma_ptx.cuh"
+#include "paged_attention_common.cuh"
 
 namespace warp_walk {
 
 using bf16 = __nv_bfloat16;
 using namespace ptx;
-constexpr int kMaxG = 8;       // query rows per kv head
+using paged::GroupSlice;
+constexpr int kRows = paged::kSliceRows;   // query rows a CTA: mma's 8 columns
 constexpr int kTile = 16;      // tokens per tile
 constexpr int kStages = 3;     // tiles in a warp's ring
 constexpr float kNegInf = -1e30f;
@@ -57,7 +62,7 @@ __host__ __device__ constexpr int row_elems() { return HD + 8; }   // 16-byte pa
 template <int HD, int kWarps>
 __host__ __device__ constexpr size_t smem_bytes() {
   constexpr size_t ring = (size_t)kWarps * kStages * 2 * kTile * row_elems<HD>() * sizeof(bf16);
-  constexpr size_t merge = (size_t)kWarps * kMaxG * HD * sizeof(float);
+  constexpr size_t merge = (size_t)kWarps * kRows * HD * sizeof(float);
   return ring > merge ? ring : merge;
 }
 
@@ -79,19 +84,19 @@ __device__ __forceinline__ void table_advance(const int* pages, int n, int i, in
 
 template <int kWarps>
 struct MergeState {
-  float m[kWarps][kMaxG];
-  float l[kWarps][kMaxG];
+  float m[kWarps][kRows];
+  float l[kWarps][kRows];
 };
 
-// The CTA's state after a walk: (m, l) per query row; acc lives at the
-// start of the dynamic shared memory as (kMaxG, HD) float32.
+// The CTA's state after a walk: (m, l) per query row of the slice; acc
+// lives at the start of the dynamic shared memory as (kRows, HD) float32.
 struct CtaState {
-  float m[kMaxG];
-  float l[kMaxG];
+  float m[kRows];
+  float l[kRows];
 };
 
 // Combine the warps' (m, l, acc) by log-sum-exp into the CTA's state, acc
-// in place over warp 0's slot of acc_s ((kWarps, kMaxG, HD) float: each
+// in place over warp 0's slot of acc_s ((kWarps, kRows, HD) float: each
 // element is read and written by one thread only).
 template <int HD, int kWarps>
 __device__ __forceinline__ void combine(const MergeState<kWarps>& st, float* acc_s,
@@ -106,7 +111,7 @@ __device__ __forceinline__ void combine(const MergeState<kWarps>& st, float* acc
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(st.m[w][g] - mx);
       lsum += st.l[w][g] * f;
-      o += acc_s[(size_t)w * kMaxG * HD + e] * f;
+      o += acc_s[(size_t)w * kRows * HD + e] * f;
     }
     acc_s[e] = o;
     if (e % HD == 0) {
@@ -141,28 +146,29 @@ __device__ __forceinline__ float col_sum(float v) {
 // as its accumulator entries.
 //
 // Walks tiles [t_begin, t_end) of row b's n_tok live tokens (n_tok =
-// min(ctx, nblk * bs); tile t holds tokens 16 t .. 16 t + 15) and leaves the
-// CTA's unnormalised state in ``state`` and at the start of ``smem``, after
-// a __syncthreads.
+// min(ctx, nblk * bs); tile t holds tokens 16 t .. 16 t + 15) for the query
+// rows of slice ``sl`` and leaves the CTA's unnormalised state in ``state``
+// and at the start of ``smem``, after a __syncthreads.
 template <int HD, int kWarps>
 __device__ __forceinline__ void walk_tiles(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const int* __restrict__ pages, int b, int h,
-    int hq, int hkv, int bs, int n_tok, int t_begin, int t_end, float scale,
-    unsigned char* smem, CtaState& state) {
+    const bf16* __restrict__ v_pages, const int* __restrict__ pages, int b,
+    GroupSlice sl, int hq, int hkv, int bs, int n_tok, int t_begin, int t_end,
+    float scale, unsigned char* smem, CtaState& state) {
   constexpr int kRow = row_elems<HD>();
   constexpr int kKS = HD / 16;             // k-steps of K Q^T; d tiles of O^T
   constexpr int kCh = HD / 8;              // 16-byte chunks per token row
   __shared__ MergeState<kWarps> st;
 
-  const int g_size = hq / hkv;
+  const int h = sl.h, g_size = sl.rows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / 4, quad = lane % 4;
 
-  // Q^T as the B operand, in registers for the whole walk: lane holds
-  // q[g = grp][16 s + 2 quad + {0, 1}] and the same 8 columns on; rows
-  // g >= G are zero
-  const bf16* qrow = q + ((size_t)b * hq + (size_t)h * g_size + grp) * HD + 2 * quad;
+  // Q^T as the B operand, in registers for the whole walk: lane holds the
+  // slice's q[g = grp][16 s + 2 quad + {0, 1}] and the same 8 columns on;
+  // rows g >= sl.rows are zero
+  const bf16* qrow = q + ((size_t)b * hq + (size_t)h * (hq / hkv) + sl.g0 + grp) * HD
+                     + 2 * quad;
   uint32_t qf[kKS][2];
 #pragma unroll
   for (int s = 0; s < kKS; ++s) {
@@ -266,7 +272,7 @@ __device__ __forceinline__ void walk_tiles(
 
   // the rings are free once every warp is past its walk
   __syncthreads();
-  float* acc_s = reinterpret_cast<float*>(smem);          // (kWarps, kMaxG, HD)
+  float* acc_s = reinterpret_cast<float*>(smem);          // (kWarps, kRows, HD)
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int g = 2 * quad + e;
@@ -275,7 +281,7 @@ __device__ __forceinline__ void walk_tiles(
         st.m[warp][g] = m[e];
         st.l[warp][g] = l[e];
       }
-      float* dst = acc_s + ((size_t)warp * kMaxG + g) * HD + grp;
+      float* dst = acc_s + ((size_t)warp * kRows + g) * HD + grp;
 #pragma unroll
       for (int mt = 0; mt < kKS; ++mt) {
         dst[16 * mt] = o[mt][e];

@@ -21,7 +21,9 @@ from repro_torch.kernels.ref import ref_paged_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
 PAGE_SIZES = (4, 8, 16)
-MAX_GROUP = 8          # query heads per kv head the kernel holds on chip
+# a CTA holds one slice of at most this many of a kv head's G query heads
+# (the 8 columns of mma.m16n8k16); any G runs as ceil(G / 8) slices
+SLICE_ROWS = 8
 
 # split-K's launch: the splits of one (sequence, kv head) form one thread-
 # block cluster, at most the portable cluster size; a split's four warps
@@ -41,16 +43,25 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def default_num_splits(b: int, hkv: int, nblk: int, bs: int, num_sms: int) -> int:
+def group_slices(group: int) -> int:
+    """CTAs one (sequence, kv head) takes in each decode kernel's grid
+    (per split, for split-K): its G query heads in slices of SLICE_ROWS."""
+    return -(-group // SLICE_ROWS)
+
+
+def default_num_splits(b: int, hkv: int, nblk: int, bs: int, num_sms: int,
+                       group: int = 1) -> int:
     """Splits of each row for split-K. Each split's warps should have a
     few tiles each behind the ones in flight (the table's nblk * bs tokens
-    are the host's upper bound of a row), the B * Hkv * nsplit CTAs should
-    stay within about two waves of resident CTAs, and a row's splits form
-    one cluster. At the serve's table width (32 pages of 16) that is one
-    split; splitting is for long contexts at small batch."""
+    are the host's upper bound of a row), the B * Hkv * slices * nsplit
+    CTAs (``group`` = G query heads a kv head, ``group_slices`` of them)
+    should stay within about two waves of resident CTAs, and a row's splits
+    form one cluster. At the serve's table width (32 pages of 16) that is
+    one split; splitting is for long contexts at small batch."""
     tiles = -(-nblk * bs // TILE_TOKENS)
     by_work = tiles // (WALK_WARPS * TILES_PER_WARP)
-    by_card = 2 * num_sms * RESIDENT_CTAS_PER_SM // max(b * hkv, 1)
+    ctas = b * hkv * group_slices(group)
+    by_card = 2 * num_sms * RESIDENT_CTAS_PER_SM // max(ctas, 1)
     return max(1, min(by_work, by_card, MAX_SPLITS))
 
 
@@ -62,10 +73,9 @@ def _check(q, k_pages, v_pages, block_tables, ctx_lens):
     if hd_k != hd or hq % hkv:
         raise ValueError(f"head shapes disagree: q {tuple(q.shape)}, "
                          f"pages {tuple(k_pages.shape)}")
-    if hd not in HEAD_DIMS or bs not in PAGE_SIZES or hq // hkv > MAX_GROUP:
-        raise ValueError(f"kernel takes hd in {HEAD_DIMS}, bs in {PAGE_SIZES} "
-                         f"and at most {MAX_GROUP} query heads per kv head; "
-                         f"got hd={hd}, bs={bs}, G={hq // hkv}")
+    if hd not in HEAD_DIMS or bs not in PAGE_SIZES:
+        raise ValueError(f"kernel takes hd in {HEAD_DIMS} and bs in {PAGE_SIZES}; "
+                         f"got hd={hd}, bs={bs}")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("q and the pages must share float32 or bfloat16")
@@ -89,8 +99,9 @@ def paged_attention_splitk(q, k_pages, v_pages, block_tables, ctx_lens, *,
     ctx_lens (B,) int32 -> (B,Hq,hd) in q's dtype.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    once: each row's live tiles in ``num_splits`` (1 to 8; by default
-    ``default_num_splits``) equal shares, one CTA each, the row's CTAs one
+    once: for each (sequence, kv head, slice of at most 8 of its query
+    heads) the row's live tiles in ``num_splits`` (1 to 8; by default
+    ``default_num_splits``) equal shares, one CTA each, those CTAs one
     cluster that merges their states by log-sum-exp in shared memory. A
     row with ctx = 0 comes out as zeros."""
     if q.device.type == "cpu":
@@ -104,7 +115,7 @@ def paged_attention_splitk(q, k_pages, v_pages, block_tables, ctx_lens, *,
     _, bs, hkv, _ = k_pages.shape
     nblk = block_tables.shape[1]
     nsplit = num_splits or default_num_splits(
-        b, hkv, nblk, bs, _num_sms(q.device.index or 0))
+        b, hkv, nblk, bs, _num_sms(q.device.index or 0), hq // hkv)
     if not 1 <= nsplit <= MAX_SPLITS:
         raise ValueError(f"num_splits must be 1..{MAX_SPLITS} (one cluster), "
                          f"got {nsplit}")
@@ -128,7 +139,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
     dtype.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel, one
-    CTA per (sequence, kv head), normalised in the same launch. In bf16 the
+    CTA per (sequence, kv head, slice of at most 8 of its query heads),
+    normalised in the same launch. In bf16 the
     CTA's four warps walk contiguous shares of the row's live pages with
     asynchronous page loads and merge their running softmaxes at the end;
     in float32 it walks the pages one at a time, as a split-K share does.

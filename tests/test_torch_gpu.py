@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
-paths' shapes (musicgen-medium's hd 64, 24-head MHA among them), and the
-engine's tokens on the card against the CPU, for an attention model (both
+paths' shapes (musicgen-medium's hd 64, 24-head MHA and granite-34b's
+48-query-head MQA among them), and the engine's tokens on the card against
+the CPU, for an attention model and a 48-query-head MQA model (both
 decode schedules), a routed MoE model (capacity factors 8.0 and 0.5), a
 mamba2 model and a hybrid RG-LRU model, and through the real-time front
 door; the MoE layer's routing on the card against the CPU; a prefix
@@ -75,6 +76,22 @@ PAGED_DECODE_CASES = [
     (32, 24, 24, 64, 16, 32, [1, 16, 17, 511, 512, 0, 33, 64, 65, 100, 128, 129,
                               200, 255, 256, 257, 300, 320, 383, 384, 400, 448,
                               449, 480, 500, 2, 15, 31, 32, 48, 97, 510]),
+    # query groups past 8, in slices of 8 rows: granite-34b's MQA (48 query
+    # heads on one kv head, six slices) at B 1, 8 and 32 and at long
+    # context; llama4-scout's G 5 (40 on 8); G 9 and G 12, whose last slice
+    # is short (one row, four rows), in bf16's tensor-core walk at hd 128
+    # and 64 and in float32's page walk at 4-token pages
+    (1, 48, 1, 128, 16, 32, [512]),
+    (8, 48, 1, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (32, 48, 1, 128, 16, 32, [1, 16, 17, 511, 512, 0, 33, 64, 65, 100, 128, 129,
+                              200, 255, 256, 257, 300, 320, 383, 384, 400, 448,
+                              449, 480, 500, 2, 15, 31, 32, 48, 97, 510]),
+    (2, 48, 1, 128, 16, 512, [8192, 5000]),
+    (8, 40, 8, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (8, 40, 8, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    (4, 9, 1, 128, 16, 32, [300, 17, 0, 512]),
+    (3, 24, 2, 64, 16, 8, [128, 5, 77]),
+    (3, 12, 1, 32, 4, 6, [24, 2, 0]),
 ]
 CHUNKED_CASES = [
     (64, 128, 4, 2, 32, 0), (64, 128, 4, 2, 32, 37), (32, 64, 2, 1, 64, 30),
@@ -90,6 +107,10 @@ CHUNKED_CASES = [
     # musicgen-medium's MHA at hd 64, 24 heads: one head a tile of 64 rows,
     # and a chunk whose last tile is ragged
     (64, 512, 24, 24, 64, 0), (64, 512, 24, 24, 64, 448), (37, 300, 24, 24, 64, 200),
+    # query groups past 8: granite-34b's G 48 (a 64-row tile spans two query
+    # positions, one in part), llama4-scout's G 5, G 9 and G 12
+    (64, 512, 48, 1, 128, 0), (64, 512, 48, 1, 128, 448), (7, 40, 48, 1, 32, 33),
+    (64, 512, 40, 8, 128, 448), (37, 300, 9, 1, 128, 200), (64, 512, 24, 2, 64, 37),
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
@@ -229,6 +250,34 @@ def test_legacy_paged_kernel_ignores_garbage_pages(cuda):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_mqa_paged_kernels_ignore_garbage_pages(cuda, dtype):
+    """At granite-34b's head shape (48 query heads on one kv head, six
+    slices): pages the table does not reference, and a table entry past
+    the context pointing far outside the pool, change neither kernel's
+    output."""
+    rng = np.random.default_rng(10)
+    b, hq, hkv, hd, bs, p = 2, 48, 1, 128, 16, 12
+    q = _randn(rng, (b, hq, hd), dtype, cuda)
+    kp = _randn(rng, (p, bs, hkv, hd), dtype, cuda)
+    vp = _randn(rng, (p, bs, hkv, hd), dtype, cuda)
+    bt = torch.tensor([[1, 3, 5], [7, 9, 11]], dtype=torch.int32, device=cuda)
+    cl = torch.tensor([40, 20], dtype=torch.int32, device=cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0], kp2[2], vp2[4], kp2[10] = 999.0, -999.0, 123.0, 77.0
+    far = torch.tensor([[1, 3, 5], [7, 9, 1 << 30]], dtype=torch.int32, device=cuda)
+    for fn in (paged_attention_splitk, paged_attention):
+        out1 = fn(q, kp, vp, bt, cl)
+        out2 = fn(q, kp2, vp2, bt, cl)
+        out3 = fn(q, kp, vp, far, cl)
+        torch.cuda.synchronize()
+        assert torch.equal(out1, out2) and torch.equal(out1, out3)
+        tol = DECODE_TOL[dtype]
+        torch.testing.assert_close(out1.float(),
+                                   ref.ref_paged_attention(q, kp, vp, bt, cl).float(),
+                                   rtol=tol, atol=tol)
+
+
 def rglru_inputs(rng, b, s, w, dtype, dev, gate):
     """a, b (B,S,W). ``gate``: a as the model's gate makes it,
     exp(-8 softplus(2) r) with r in (0, 1); else sigmoid of a normal draw
@@ -342,6 +391,29 @@ def test_legacy_engine_tokens_on_card_equal_cpu(cuda):
     assert got == want
     assert paged_attention.launches > launches[0]
     assert paged_attention_splitk.launches == launches[1]
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "pallas"])
+def test_mqa_engine_tokens_on_card_equal_cpu(cuda, attn_impl):
+    """A tiny float32 model with 48 query heads on one kv head: the card's
+    tokens (six group slices a kv head in each decode kernel) equal the
+    CPU's, with and without host-tier swap, under both decode schedules."""
+    cfg = ModelConfig(name="tiny-mqa", family="dense", source="test",
+                      num_layers=2, d_model=64, vocab_size=128, num_heads=48,
+                      num_kv_heads=1, head_dim=16, d_ff=128, dtype="float32",
+                      rope_theta=10_000.0)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    decode = paged_attention if attn_impl == "pallas" else paged_attention_splitk
+    want, _ = _tokens(model, params, "cpu", swap=False, attn_impl=attn_impl)
+    launches = decode.launches
+    got, _ = _tokens(model, gpu_params, cuda, swap=False, attn_impl=attn_impl)
+    assert got == want
+    assert decode.launches > launches
+    got_swap, eng = _tokens(model, gpu_params, cuda, swap=True, attn_impl=attn_impl)
+    assert eng.bm.metrics.swapped_in_tokens > 0
+    assert got_swap == want
 
 
 @pytest.mark.parametrize("cf", [8.0, 0.5])
