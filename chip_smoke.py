@@ -24,15 +24,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      tests/test_kernels.py, garbage pages included; and at query groups
      past 8, which the decode kernels take in slices of 8 rows: granite-34b's
      MQA (Hq 48, Hkv 1, six slices), llama4-scout's G 5 (Hq 40, Hkv 8), and
-     G 9 and G 12 (a short last slice), in bf16 and float32, B 1, 8 and 32
-     and long context, garbage pages included, the prefill at all four;
+     G 9 and G 12 (a short last slice), and qwen2-vl-72b's G 8 (Hq 64, Hkv
+     8), in bf16 and float32, B 1, 8 and 32, granite's, llama4-scout's and
+     qwen2-vl's heads also at long context, garbage pages included, the
+     prefill at all five;
   4. attention kernel time beside its bound, the plain version's time and
      ``scaled_dot_product_attention``'s (a yardstick the port never calls):
      decode at the serve's B 8, at B 32 and at long context (B 2, contexts
      8192 and 5000), split-K also at 1, 2, 4 and 8 splits; and the prefill
      tile height not taken; decode at B 8 and prefill also at codeqwen's
-     and musicgen-medium's MHA shapes, and at granite-34b's MQA shape
-     (decode at B 8 and at long context);
+     and musicgen-medium's MHA shapes, and at the heads of granite-34b's
+     MQA, llama4-scout (Hq 40, Hkv 8) and qwen2-vl (Hq 64, Hkv 8), decode
+     at B 8 and at long context;
   5. serve full-width qwen3-4b (36 layers, bf16, seeded random weights)
      through ``EchoEngine``: online and offline requests must all finish,
      through the kernels only; then the same mix with ``attn_impl="pallas"``,
@@ -89,12 +92,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      top-8, bf16, seeded random weights) through ``EchoEngine`` with phase
      5's mix and checks, on a card freed of every earlier phase; the peak
      memory of the init (the weights and one float32 temporary) and of the
-     serve; a profile of a decode step and a prefill chunk, with the expert
-     products' device time, and no copy of an expert weight;
+     serve; a profile of a decode step and a prefill chunk, with the device
+     time of the expert products, of ``_route`` and of the whole MoE
+     layer, and no copy of an expert weight;
  17. one full-width MoE layer of that model, upcast to float32, on the card
      against the CPU: a 64-token chunk group and a decode batch of 5 padded
      to 8 route to equal ``dispatch`` tensors, and the outputs agree to
      1e-4 (relative norm);
+ 17b. the same for one full-width llama4-scout-17b-a16e MoE layer (16
+     experts of d_ff 8192, top-1 at capacity factor 1.25, the shared
+     expert; 8.6 GB in float32 on each side), from phase 19c's weights:
+     capacity 5 for the chunk group, 1 for the decode batch, where most
+     choices are dropped and those tokens keep the shared expert alone;
  18. token parity of a tiny float32 MoE (qwen3-moe reduced) between the CPU
      and the card, and between the two with host-tier swap, at capacity
      factors 8.0 and 0.5 (where routing drops tokens, so the swap run's
@@ -111,7 +120,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (one split-K launch a layer, no plain version) and a prefill chunk
      (one prefill launch a layer); then the same mix with
      ``attn_impl="pallas"`` and a profiled decode step through the legacy
-     kernel only, beside the card's name and power limit;
+     kernel only, beside the card's name and power limit; the profiled
+     steps' device-to-host copies (the logits) and the phase's seconds;
+ 19c. the same for llama4-scout-17b-a16e at full width (d 5120, Hq 40 on
+     Hkv 8 of hd 128, 16 experts of d_ff 8192, top-1 plus a shared expert,
+     vocab 202048) with its depth cut to 12 of 48 layers (57.0 GB; 8 if
+     the freed card cannot hold 12), and in the decode step's and prefill
+     chunk's profiles phase 16's MoE figures: the device time of the
+     three products on an expert weight a layer (and their read rate), of
+     ``_route`` and of the whole MoE layer, with no copy of an expert
+     weight;
+ 19d. the same for qwen2-vl-72b at full width (d 8192, Hq 64 on Hkv 8 of
+     hd 128, d_ff 29568, vocab 152064) with its depth cut to 32 of 80
+     layers (61.2 GB; 24 if the freed card cannot hold 32); serving passes
+     three equal M-RoPE rows, which is plain RoPE;
  20. serve full-width musicgen-medium (48 layers, d 1536, 24 heads of hd 64,
      bf16, seeded random weights) through ``EchoEngine`` with phase 5's mix
      and checks, an ``EngineProbe`` and a ``Tracer`` attached: the probe
@@ -125,6 +147,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shared expert, capacity factors 8.0 and 0.5): engine tokens on the CPU
      and the card, with and without host-tier swap, and the prefill with
      frames;
+ 21b. phase 21's dense path with frames at full width on a fresh 2-layer
+     cut of llama4-scout-17b-a16e (32 frames of 1408) and of qwen2-vl-72b
+     (32 frames of 1280), bf16 against the float32 copy; qwen2-vl's also
+     with three distinct M-RoPE rows through its sections (16, 24, 24),
+     which must move the float32 logits by more than the bf16 gap
+     (phases 19c, 17b, 19d and 21b run after 19b, before 20);
  22. two engines on musicgen's one copy of the weights, each with its own
      pool and host tier, as replicas under a ``cluster.Router``: a cached
      document's pages migrate from replica 0 to replica 1, whose greedy
@@ -309,14 +337,30 @@ MG_H, MG_HD = 24, 64
 # embeddings, then decode steps; bf16 against a float32 copy of the weights
 # must stay within DENSE_REL_LIMIT (relative norm of the logits)
 MM_S, MM_FRAMES, MM_STEPS, DENSE_REL_LIMIT = 128, 32, 8, 0.1
+# the published heads of llama4-scout-17b-a16e (G 5: one slice of 8 rows,
+# three masked) and qwen2-vl-72b (G 8: one full slice), (Hq, Hkv, hd)
+SCOUT_HEADS, QVL_HEADS = (40, 8, HD), (64, 8, HD)
 # query groups past 8 (Hq, Hkv, hd): granite-34b's MQA (G 48, six slices of
 # 8 rows), llama4-scout's G 5, then G 9 and G 12, whose last slice is short
 GRANITE_HQ, GRANITE_HKV = 48, 1
-MQA_HEADS = [(GRANITE_HQ, GRANITE_HKV, HD), (40, 8, HD), (9, 1, HD), (24, 2, 64)]
-# phase 19b: granite-34b at full width with its depth cut (88 layers are
-# 93.9 GB in bf16), and the cut taken if the freed card cannot hold that
-# (weights, pool, the init's float32 temporary and this much more)
-GRANITE_LAYERS, GRANITE_LAYERS_FALLBACK, GRANITE_HEADROOM = 56, 48, 4 << 30
+MQA_HEADS = [(GRANITE_HQ, GRANITE_HKV, HD), SCOUT_HEADS, (9, 1, HD), (24, 2, 64)]
+# phases 19b-19d: configs served at full width with their depth cut to
+# what the card holds (bf16: granite-34b's 88 layers are 93.9 GB,
+# llama4-scout's 48 are 215.5, qwen2-vl's 80 are 145.4), arch -> (layers,
+# the cut taken if the freed card cannot hold the first one's weights,
+# pool, the init's largest float32 draw and CUT_HEADROOM more)
+DEPTH_CUTS = {"granite-34b": (56, 48), "llama4-scout-17b-a16e": (12, 8),
+              "qwen2-vl-72b": (32, 24)}
+CUT_HEADROOM = 4 << 30
+# the MoE profiles' labels: the products on an expert weight, copies of
+# one, and the profiler ranges around each call of ``moe._route`` and of
+# ``moe.moe_apply`` (the whole layer), by the function each wraps
+EXPERT_PRODUCTS = "expert products (bmm on an expert weight)"
+EXPERT_COPIES = "copies of an expert weight"
+ROUTE_MARK, MOE_MARK = "moe._route", "moe.moe_apply"
+RANGED = {"_route": ROUTE_MARK, "moe_apply": MOE_MARK}
+# phase 21b: the multimodal dense path of each at full width, 2 layers
+MM_CUT_LAYERS = 2
 # the two replicas of phase 22: device pool and host tier, in blocks, each
 REP_BLOCKS = 256
 # the serves' request mixes: (prompt length, arrival s) of the online
@@ -549,18 +593,20 @@ def phase_kernels(gen):
     for b, lo, hi, nblk, splits, hq, hkv, hd in shapes:
         _decode_case(gen, errs, b, _ragged_ctx(gen, b, lo, hi, nblk), f"ctx {lo}..{hi}",
                      nblk, splits, hq, hkv, hd, torch.bfloat16)
-    # query groups past 8 in both dtypes: B 1 up to the table, B 8 at the
-    # serve's contexts, B 32 ragged up to the table (a ctx-0 row), and at
-    # granite's shape long context (B 2, 8192 and 5000: a full cluster)
+    # query groups past 8 and qwen2-vl's heads in both dtypes: B 1 up to
+    # the table, B 8 at the serve's contexts, B 32 ragged up to the table
+    # (a ctx-0 row), and at the heads of granite, llama4-scout and qwen2-vl
+    # long context (B 2, 8192 and 5000: a full cluster)
     for dtype in (torch.bfloat16, torch.float32):
-        for hq, hkv, hd in MQA_HEADS:
+        for hq, hkv, hd in MQA_HEADS + [QVL_HEADS]:
             for b, lo, hi in ((1, 1, MAX_PAGES * BS), (8, 80, 120), (32, 1, MAX_PAGES * BS)):
                 _decode_case(gen, errs, b, _ragged_ctx(gen, b, lo, hi, MAX_PAGES),
                              f"ctx {lo}..{hi}", MAX_PAGES, None, hq, hkv, hd, dtype)
-        _decode_case(gen, errs, 2, LONG_CTX, f"ctx {LONG_CTX}", LONG_NBLK, None,
-                     GRANITE_HQ, GRANITE_HKV, HD, dtype)
+        for hq, hkv, hd in ((GRANITE_HQ, GRANITE_HKV, HD), SCOUT_HEADS, QVL_HEADS):
+            _decode_case(gen, errs, 2, LONG_CTX, f"ctx {LONG_CTX}", LONG_NBLK, None,
+                         hq, hkv, hd, dtype)
     for hq, hkv, hd in ((HQ, HKV, HD), (HQ, CQ_HKV, HD), (HQ, G8_HKV, HD),
-                        (MG_H, MG_H, MG_HD), *MQA_HEADS):
+                        (MG_H, MG_H, MG_HD), *MQA_HEADS, QVL_HEADS):
         for ctx in (0, 37, 448):
             ins = prefill_inputs(gen, CHUNK, MAX_PAGES * BS, hq, hkv, hd, torch.bfloat16)
             want = ref.ref_chunked_prefill_attention(*ins, ctx)
@@ -751,8 +797,8 @@ def phase_timing(gen, errs):
     # decode as the serve runs it (batch 8, contexts near 100), then a
     # full batch of 32 with ragged contexts up to the table, long context,
     # batch 8 at codeqwen's MHA shape and at musicgen-medium's, and
-    # granite-34b's MQA (48 query heads on one kv head) at batch 8 and at
-    # long context
+    # granite-34b's MQA (48 query heads on one kv head), llama4-scout's
+    # heads and qwen2-vl's, each at batch 8 and at long context
     def serve_ctx():
         return torch.randint(80, 121, (8,), generator=gen, device=DEV).tolist()
     rows = (_decode_rows(gen, errs, 8, serve_ctx())
@@ -760,15 +806,17 @@ def phase_timing(gen, errs):
                 1, MAX_PAGES * BS + 1, (32,), generator=gen, device=DEV).tolist())
             + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK)
             + _decode_rows(gen, errs, 8, serve_ctx(), hkv=CQ_HKV)
-            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=MG_H, hq=MG_H, hd=MG_HD)
-            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=GRANITE_HKV, hq=GRANITE_HQ)
-            + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK, hkv=GRANITE_HKV,
-                           hq=GRANITE_HQ))
+            + _decode_rows(gen, errs, 8, serve_ctx(), hkv=MG_H, hq=MG_H, hd=MG_HD))
+    for hq, hkv, hd in ((GRANITE_HQ, GRANITE_HKV, HD), SCOUT_HEADS, QVL_HEADS):
+        rows += (_decode_rows(gen, errs, 8, serve_ctx(), hkv=hkv, hq=hq, hd=hd)
+                 + _decode_rows(gen, errs, 2, LONG_CTX, LONG_NBLK, hkv=hkv, hq=hq, hd=hd))
     # prefill at qwen3-4b's shape, then at codeqwen's MHA shape, at
-    # musicgen-medium's and at granite-34b's MQA
+    # musicgen-medium's, at granite-34b's MQA, llama4-scout's and qwen2-vl's
     rows += [_prefill_row(gen, errs, HKV), _prefill_row(gen, errs, CQ_HKV),
              _prefill_row(gen, errs, MG_H, hq=MG_H, hd=MG_HD),
-             _prefill_row(gen, errs, GRANITE_HKV, hq=GRANITE_HQ)]
+             _prefill_row(gen, errs, GRANITE_HKV, hq=GRANITE_HQ),
+             _prefill_row(gen, errs, SCOUT_HEADS[1], hq=SCOUT_HEADS[0]),
+             _prefill_row(gen, errs, QVL_HEADS[1], hq=QVL_HEADS[0])]
     for r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
@@ -810,7 +858,8 @@ def _trace(fn, primer=PRIMER_LAUNCHES, record_shapes=False):
             inside = mark.start_ns() <= e.start_ns() <= mark.end_ns()
             (step if inside else primed).add(e.correlation_id())
     on_device = {e.correlation_id() for e in events
-                 if e.device_type() == torch.autograd.DeviceType.CUDA}
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation()}
     check(step and len(primed) == primer,
           f"the trace holds {len(step)} calls of the step and {len(primed)} of the "
           f"primer's {primer}")
@@ -847,10 +896,13 @@ def _profile_steps(steps, ours, what, ops=None):
         check(not dropped, f"profile {name}: each of {TRACE_ATTEMPTS} traces lacks "
               f"device records of the step")
         # the step's device-side events only (kernels and copies): the
-        # CPU-side op rows of key_averages() carry the same device time again
+        # CPU-side op rows of key_averages() carry the same device time again,
+        # and a ``record_function`` range leaves a device-side annotation
+        # spanning its kernels, whose id may equal a launch's
         events = prof.events()
         dev = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.id in step]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.id in step
+               and not e.is_user_annotation]
         mark = next(e.time_range for e in events if e.name == STEP_MARK
                     and e.device_type == torch.autograd.DeviceType.CPU)
         dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
@@ -868,12 +920,18 @@ def _profile_steps(steps, ours, what, ops=None):
         print(f"    {what} (ours): {sum(t for t, _ in mine):.3f} ms over "
               f"{sum(n for _, n in mine)} launches, "
               f"{sum(t for t, _ in mine) / max(dev_ms, 1e-9):.1%} of device busy")
+        # an operator's (or a range's) device time: that of the step's
+        # kernels and copies whose runtime call lies inside it
+        calls = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.id in step and any(c in e.name for c in DEVICE_CALLS)]
         for label, pred in (ops or {}).items():
             hit = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and mark.start <= e.time_range.start <= mark.end
                    and pred(e.name, e.input_shapes)]
-            t = sum(k.duration for e in hit for k in e.kernels) / 1e3
+            inside = {c.id for c in calls for h in hit
+                      if h.time_range.start <= c.time_range.start <= h.time_range.end}
+            t = sum(e.time_range.elapsed_us() for e in dev if e.id in inside) / 1e3
             by_name[("op", label)] = (t, len(hit))
             print(f"    {label}: {len(hit)} operator calls, {t:.3f} ms of device "
                   f"time, {t / max(dev_ms, 1e-9):.1%} of device busy")
@@ -915,7 +973,7 @@ def phase_serve():
     print(f"init: {cfg.num_layers} layers d={cfg.d_model} vocab={cfg.vocab_size} "
           f"{cfg.dtype}, {cfg.param_count / 1e9:.2f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
-    launches, (online, stats, wall) = _serve_both_schedules(model, params, SERVE_MIX)
+    launches, (online, stats, wall), _ = _serve_both_schedules(model, params, SERVE_MIX)
     # what phase 23's front door is held against: the engine's own loop
     engine_loop = dict(tpot=float(np.mean([r.tpot() for r in online])),
                        iter_ms=wall / len(stats.iterations) * 1e3)
@@ -930,14 +988,15 @@ def _no_plain_attention(what):
           f"{what} ran a plain attention on the card")
 
 
-def _serve_both_schedules(model, params, mix):
+def _serve_both_schedules(model, params, mix, ops=None):
     """``mix`` through ``_serve_paged`` with split-K decode, then with the
     legacy decode kernel (``attn_impl="pallas"``); a profile of a decode
     step and a prefill chunk of the first (one split-K cluster launch a
     layer and no merge kernel in the decode step, one prefill launch a
-    layer in the chunk) and of a decode step of the second (one legacy
-    launch a layer), none running a plain version on the card. Returns the
-    serves' kernel launches and the first serve's (online, stats, wall)."""
+    layer in the chunk; ``ops`` as ``_profile_steps`` takes them) and of a
+    decode step of the second (one legacy launch a layer), none running a
+    plain version on the card. Returns the serves' kernel launches, the
+    first serve's (online, stats, wall) and its profiles."""
     layers = model.cfg.num_layers
     online, offline, eng, stats, wall = _serve_paged(model, params, "auto", mix)
     launches = {"paged_attention_splitk": paged_attention_splitk.launches,
@@ -946,7 +1005,7 @@ def _serve_both_schedules(model, params, mix):
     _print_serve(online, offline, stats, wall)
     attn = (SPLITK_DECODE, PREFILL_TC, LEGACY_DECODE, "merge")
     _reset_counts()
-    traces = _profile_steps(_attention_steps(eng.runner), attn[:2], "attention kernels")
+    traces = _profile_steps(_attention_steps(eng.runner), attn[:2], "attention kernels", ops)
     _no_plain_attention("a profiled step of the split-K serve")
     seen = {k: _launches(v, attn) for k, v in traces.items()}
     print(f"  attention launches per profiled step: {seen}; {_smi()}")
@@ -973,15 +1032,15 @@ def _serve_both_schedules(model, params, mix):
           f"({sum(a == b for a, b in pairs) / len(pairs):.1%})")
     decode = {k: fn for k, fn in _attention_steps(eng.runner).items()
               if k.startswith("decode")}
-    traces = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
-    check(all(_launches(v, (LEGACY_DECODE,)) == layers for v in traces.values()),
+    legacy = _profile_steps(decode, (LEGACY_DECODE,), "legacy decode kernel")
+    check(all(_launches(v, (LEGACY_DECODE,)) == layers for v in legacy.values()),
           f"the legacy decode step is not one {LEGACY_DECODE} a layer")
     _no_plain_attention("a profiled step of the legacy serve")
     check(paged_attention_splitk.launches == 0,
           "the split-K kernel launched in the legacy serve's profiled step")
     del eng
     torch.cuda.empty_cache()
-    return launches, (online, stats, wall)
+    return launches, (online, stats, wall), traces
 
 
 def _print_serve(online, offline, stats, wall):
@@ -1723,6 +1782,14 @@ def _nbytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def _f32_draw(cfg, params):
+    """Bytes of the init's largest float32 draw: the (vocab, d) embedding,
+    or one layer of the largest stacked weight of ``params`` (the weights
+    or ``Model.param_specs()``)."""
+    return 4 * max([cfg.vocab_size * cfg.d_model]
+                   + [t[0].numel() for t in tree_leaves(params["layers"])])
+
+
 def _init_full_width(cfg):
     """Seeded random weights of ``cfg`` on the card, with the init's peak
     memory over the weights: at most one float32 temporary (a stacked
@@ -1734,10 +1801,7 @@ def _init_full_width(cfg):
     torch.cuda.synchronize()
     weights = _nbytes(params)
     over = torch.cuda.max_memory_allocated() - weights
-    # the largest float32 draw: the (vocab, d) embedding, or one layer of
-    # the largest stacked weight
-    temp = 4 * max([cfg.vocab_size * cfg.d_model]
-                   + [t[0].numel() for t in tree_leaves(params["layers"])])
+    temp = _f32_draw(cfg, params)
     print(f"init: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
           f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} hd={cfg.head_dim} "
           f"vocab={cfg.vocab_size} {cfg.dtype}, "
@@ -1747,6 +1811,69 @@ def _init_full_width(cfg):
           f"{over / 1e6:.1f} MB (largest float32 temporary {temp / 1e6:.1f} MB)")
     check(over <= temp + (64 << 20), "the init held more than one float32 temporary")
     return model, params
+
+
+@contextlib.contextmanager
+def _moe_ranged():
+    """While the block runs, ``moe.moe_apply`` and ``moe._route`` each run
+    inside a profiler range (``MOE_MARK``, ``ROUTE_MARK``), so a MoE
+    profile can sum the device time of the layer and of its routing."""
+    from torch.profiler import record_function
+    saved = {name: getattr(moe, name) for name in RANGED}
+
+    def ranged(name, fn):
+        def call(*args):
+            with record_function(RANGED[name]):
+                return fn(*args)
+        return call
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def _moe_ops(cfg):
+    """``_profile_steps``' ops for a MoE model (under ``_moe_ranged``): the
+    three batched products on a stored expert weight, (E, d, ff) or (E, ff,
+    d); copies of an expert weight; ``_route``; and the whole layer."""
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def expert(shape):
+        return list(shape) in ([e, d, ff], [e, ff, d])
+    return {EXPERT_PRODUCTS:
+            lambda name, shapes: name == "aten::bmm" and any(map(expert, shapes)),
+            EXPERT_COPIES:
+            lambda name, shapes: name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                                          "aten::_to_copy") and any(map(expert, shapes)),
+            ROUTE_MARK: lambda name, shapes: name == ROUTE_MARK,
+            MOE_MARK: lambda name, shapes: name == MOE_MARK}
+
+
+def _moe_profile(cfg, traces):
+    """In each profiled step of a MoE serve, traced with ``_moe_ops``: the
+    rate of the expert products (the dense dispatch reads every expert of
+    every layer each step), ``_route``'s time and the rest of the layer
+    (the dispatch into and the combine out of the expert slots, the
+    shared expert); fails unless the step ran three expert products, one
+    ``_route`` and one MoE layer a layer, and copied no expert weight."""
+    layers = cfg.num_layers
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2 * layers
+    for name, by_name in traces.items():
+        ms, calls = by_name[("op", EXPERT_PRODUCTS)]
+        route_ms, routes = by_name[("op", ROUTE_MARK)]
+        moe_ms, applies = by_name[("op", MOE_MARK)]
+        print(f"  {name}: expert products read {expert_bytes / 1e9:.2f} GB in {ms:.3f} ms "
+              f"({expert_bytes / max(ms, 1e-9) / 1e9:.2f} TB/s; bound "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s); "
+              f"_route {route_ms:.3f} ms; the MoE layers {moe_ms:.3f} ms, of which "
+              f"{moe_ms - ms - route_ms:.3f} ms neither")
+        check(calls == 3 * layers, f"{name}: {calls} expert products, not 3 a layer")
+        check(routes == applies == layers,
+              f"{name}: {routes} _route and {applies} moe_apply calls, not one a layer")
+        check(by_name[("op", EXPERT_COPIES)][1] == 0, f"{name}: an expert weight was copied")
 
 
 def phase_serve_moe():
@@ -1760,30 +1887,14 @@ def phase_serve_moe():
           f"tokens = {model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
     online, offline, eng, stats, wall = _serve_paged(model, params, "auto", SERVE_MIX)
     _print_serve(online, offline, stats, wall)
-    e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
-
-    def expert(shape):              # a stored expert weight, (E, d, ff) or (E, ff, d)
-        return list(shape) in ([e, d, ff], [e, ff, d])
-    ops = {"expert products (bmm on an expert weight)":
-           lambda name, shapes: name == "aten::bmm" and any(map(expert, shapes)),
-           "copies of an expert weight":
-           lambda name, shapes: name in ("aten::copy_", "aten::clone", "aten::contiguous",
-                                         "aten::_to_copy") and any(map(expert, shapes))}
     attn = (SPLITK_DECODE, PREFILL_TC)
-    traces = _profile_steps(_attention_steps(eng.runner), attn, "attention kernels", ops)
-    # the dense dispatch reads every expert of every layer each step
-    expert_bytes = 3 * e * d * ff * 2 * cfg.num_layers
+    with _moe_ranged():
+        traces = _profile_steps(_attention_steps(eng.runner), attn, "attention kernels",
+                                _moe_ops(cfg))
     for name, by_name in traces.items():
         check(_launches(by_name, attn) == cfg.num_layers,
               f"{name}: not one attention launch a layer")
-        ms, calls = by_name[("op", "expert products (bmm on an expert weight)")]
-        print(f"  {name}: expert products read {expert_bytes / 1e9:.2f} GB in {ms:.3f} ms "
-              f"({expert_bytes / max(ms, 1e-9) / 1e9:.2f} TB/s; bound "
-              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
-        check(calls == 3 * cfg.num_layers,
-              f"{name}: {calls} expert products, not 3 a layer")
-        check(by_name[("op", "copies of an expert weight")][1] == 0,
-              f"{name}: an expert weight was copied")
+    _moe_profile(cfg, traces)
     del eng
     torch.cuda.empty_cache()
     return model, params
@@ -1796,10 +1907,11 @@ def _top_gap(gates, k):
     return float((top[..., :-1] - top[..., 1:]).min())
 
 
-def phase_moe_layer(model, params):
-    """Layer 0's router and experts, upcast to float32 (2.4 GB on each
-    side), on the card (TF32 off) and on the CPU."""
-    phase("17 one full-width MoE layer: card against CPU (float32)")
+def phase_moe_layer(model, params, tag="17"):
+    """Layer 0's router and experts (and shared expert, if the model has
+    one), upcast to float32 (qwen3-moe-30b-a3b's 2.4 GB, llama4-scout's
+    8.6 GB on each side), on the card (TF32 off) and on the CPU."""
+    phase(f"{tag} one full-width {model.cfg.name} MoE layer: card against CPU (float32)")
     cfg = dataclasses.replace(model.cfg, dtype="float32")
     card = tree_map(lambda a: a[0].float(), params["layers"][0][0]["moe"])
     host = tree_map(lambda t: t.cpu(), card)
@@ -1873,46 +1985,88 @@ def phase_parity_moe():
               f"schedule {'changed' if swap_tokens != cpu_tokens else 'kept'} them)")
 
 
-def _granite_layers():
-    """granite-34b's depth for phase 19b: GRANITE_LAYERS if the card, with
-    earlier phases' memory released, holds their weights, the pool, the
-    init's float32 temporary and GRANITE_HEADROOM; else
-    GRANITE_LAYERS_FALLBACK. Returns (layers, why)."""
+def _depth_cut(arch):
+    """``arch`` at full width with its depth cut for phases 19b-19d: the
+    first of ``DEPTH_CUTS[arch]`` if the card, with earlier phases' memory
+    released, holds its weights, the pool, the init's largest float32 draw
+    and ``CUT_HEADROOM``; else the fallback. Returns (config, why)."""
     gc.collect()
     torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
-    cfg = dataclasses.replace(get_config("granite-34b"), num_layers=GRANITE_LAYERS)
-    need = (2 * cfg.param_count + 4 * cfg.vocab_size * cfg.d_model + GRANITE_HEADROOM
-            + Model(cfg).cache_bytes(1, 1) * BS * NUM_BLOCKS)
+    layers, fallback = DEPTH_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = Model(cfg)
+    specs = model.param_specs()
+    need = (_nbytes(specs) + _f32_draw(cfg, specs) + CUT_HEADROOM
+            + model.cache_bytes(1, 1) * BS * NUM_BLOCKS)
     if free >= need:
-        return GRANITE_LAYERS, f"{free / 1e9:.2f} GB free, {need / 1e9:.2f} GB needed"
-    return GRANITE_LAYERS_FALLBACK, (f"{free / 1e9:.2f} GB free, under the "
-                                     f"{need / 1e9:.2f} GB {GRANITE_LAYERS} layers need")
+        return cfg, f"{free / 1e9:.2f} GB free, {need / 1e9:.2f} GB needed"
+    return (dataclasses.replace(cfg, num_layers=fallback),
+            f"{free / 1e9:.2f} GB free, under the {need / 1e9:.2f} GB {layers} layers need")
+
+
+def phase_serve_cut(tag, arch):
+    """``arch`` at full width, its depth cut by ``_depth_cut``, through
+    EchoEngine with both decode schedules and phase 19's mix; for a MoE
+    model the split-K serve's profiles also time the expert products and
+    ``_route`` (``_moe_profile``). Returns the model, its weights and the
+    split-K, legacy and prefill launches of its serves."""
+    t0 = time.perf_counter()
+    cfg, why = _depth_cut(arch)
+    cut = (f"depth cut to {cfg.num_layers} layers" if cfg.num_layers == DEPTH_CUTS[arch][0]
+           else f"depth cut to {cfg.num_layers} layers ({why})")
+    phase(f"{tag} serve {arch} at full width, {cut}")
+    print(f"  depth: {why}")
+    _free_card(f"the {arch} init")
+    model, params = _init_full_width(cfg)
+    g = cfg.num_heads // cfg.num_kv_heads
+    print(f"  G {g} ({cfg.num_heads} query heads on {cfg.num_kv_heads} kv head"
+          f"{'s' if cfg.num_kv_heads > 1 else ''}, {group_slices(g)} slice"
+          f"{'s' if group_slices(g) > 1 else ''} of 8 a decode CTA); pool {NUM_BLOCKS} "
+          f"blocks x {BS} tokens = "
+          f"{model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
+    moe_ops = _moe_ops(cfg) if cfg.num_experts else None
+    with _moe_ranged():
+        launches, _, traces = _serve_both_schedules(model, params, SMALL_MIX, moe_ops)
+    if moe_ops:
+        _moe_profile(cfg, traces)
+    print(f"  (split-K, legacy, prefill) launches: ({launches['paged_attention_splitk']}, "
+          f"{launches['paged_attention']}, {launches['chunked_prefill_attention']})")
+    # the runner copies each step's float32 logits to the host
+    for name, by_name in traces.items():
+        copies = [(t, n) for k, (t, n) in by_name.items()
+                  if isinstance(k, str) and "DtoH" in k]
+        rows = 8 if name.startswith("decode") else 1
+        print(f"  {name}: device-to-host copies {sum(t for t, _ in copies):.3f} ms over "
+              f"{sum(n for _, n in copies)} (the logits: {rows} x {cfg.vocab_size} "
+              f"float32, {rows * cfg.vocab_size * 4 / 1e6:.2f} MB)")
+    print(f"  phase {tag}: {time.perf_counter() - t0:.1f} s wall")
+    return model, params, launches
 
 
 def phase_serve_granite():
     """granite-34b at full width, its depth cut, through EchoEngine with
     both decode schedules. Returns the split-K, legacy and prefill launches
     of its serves."""
-    layers, why = _granite_layers()
-    cut = (f"depth cut to {layers} layers" if layers == GRANITE_LAYERS
-           else f"depth cut to {layers} layers ({why})")
-    phase(f"19b serve granite-34b at full width, {cut}")
-    print(f"  depth: {why}")
-    _free_card("the granite-34b init")
-    model, params = _init_full_width(
-        dataclasses.replace(get_config("granite-34b"), num_layers=layers))
-    cfg = model.cfg
-    g = cfg.num_heads // cfg.num_kv_heads
-    print(f"  G {g} ({cfg.num_heads} query heads on {cfg.num_kv_heads} kv head, "
-          f"{group_slices(g)} slices of 8 a decode CTA); pool {NUM_BLOCKS} blocks x "
-          f"{BS} tokens = {model.cache_bytes(1, 1) * BS * NUM_BLOCKS / 1e9:.2f} GB")
-    launches, _ = _serve_both_schedules(model, params, SMALL_MIX)
-    print(f"  (split-K, legacy, prefill) launches: ({launches['paged_attention_splitk']}, "
-          f"{launches['paged_attention']}, {launches['chunked_prefill_attention']})")
+    model, params, launches = phase_serve_cut("19b", "granite-34b")
     del params, model
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_serve_scout():
+    """llama4-scout-17b-a16e at full width, its depth cut. Returns the
+    model and its weights, which phase 17b takes a layer of."""
+    model, params, _ = phase_serve_cut("19c", "llama4-scout-17b-a16e")
+    return model, params
+
+
+def phase_serve_qwen2_vl():
+    """qwen2-vl-72b at full width, its depth cut. Serving passes three
+    equal M-RoPE rows, which is plain RoPE; phase 21b holds the sections."""
+    model, params, _ = phase_serve_cut("19d", "qwen2-vl-72b")
+    del params, model
+    torch.cuda.empty_cache()
 
 
 def phase_serve_dense():
@@ -2002,22 +2156,29 @@ def _mrope_rows(b, s):
     return torch.stack([grid // 6, (grid // 3) % 2 + 2, grid % 3])[:, None].expand(3, b, s)
 
 
-def phase_dense_multimodal(model, params):
-    phase("21 the multimodal dense path")
+def _dense_frames(model, params, positions=None):
+    """``Model.prefill`` of MM_S tokens whose first MM_FRAMES positions are
+    conditioning frames, ``pad_cache`` and MM_STEPS decode steps, in bf16
+    against a float32 copy of the weights (bf16 upcast exactly, TF32 off):
+    within DENSE_REL_LIMIT, and the frames move the float32 logits by more
+    than the bf16 gap. ``positions`` (3, 1, MM_S), M-RoPE rows, go to both
+    prefills with frames, and must move the float32 logits by more than
+    the bf16 gap too."""
     cfg = model.cfg
     toks, mm = _mm_inputs(cfg, 1, MM_S, MM_FRAMES, 3, DEV)
-    # a float32 copy of the same weights (bf16 upcast exactly), TF32 off
+    kw = {} if positions is None else dict(positions=positions.to(DEV))
     model32 = Model(dataclasses.replace(cfg, dtype="float32"))
     params32 = tree_map(lambda t: t.float(), params)
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last16, cache16 = model.prefill(params, toks, mm)
+        last16, cache16 = model.prefill(params, toks, mm, **kw)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         bare16, _ = model.prefill(params, toks)
-        last32, cache32 = model32.prefill(params32, toks, mm)
+        last32, cache32 = model32.prefill(params32, toks, mm, **kw)
         bare32, _ = model32.prefill(params32, toks)
+        flat32 = model32.prefill(params32, toks, mm)[0] if kw else None
         # pad_cache, then decode steps fed the float32 path's greedy tokens
         cache16 = model.pad_cache(cache16, MM_S, MM_S + MM_STEPS + 1)
         cache32 = model32.pad_cache(cache32, MM_S, MM_S + MM_STEPS + 1)
@@ -2034,19 +2195,31 @@ def phase_dense_multimodal(model, params):
     torch.cuda.empty_cache()
     d_mm, d_bare = _rel(last16[0].float(), last32[0]), _rel(bare16[0].float(), bare32[0])
     moved = _rel(last32[0], bare32[0])
-    print(f"  Model.prefill S={MM_S} with {MM_FRAMES} frames of {cfg.mm_embed_dim}, bf16: "
-          f"{t_prefill * 1e3:.1f} ms wall; last logits against the float32 copy "
-          f"rel_err={d_mm:.3e} (without frames {d_bare:.3e}), argmax agree "
+    print(f"  Model.prefill S={MM_S} with {MM_FRAMES} frames of {cfg.mm_embed_dim}"
+          f"{' and three M-RoPE rows' if kw else ''}, bf16: {t_prefill * 1e3:.1f} ms wall; "
+          f"last logits against the float32 copy rel_err={d_mm:.3e} (without frames "
+          f"{d_bare:.3e}), argmax agree "
           f"{int(torch.argmax(last16)) == int(torch.argmax(last32))}; limit "
           f"{DENSE_REL_LIMIT}")
     print(f"  the frames move the float32 last logits by rel {moved:.3e} "
           f"(limit: more than the bf16 rounding {d_mm:.3e})")
     print(f"  pad_cache, {MM_STEPS} decode steps: logits finite {finite}; rel_err "
           f"against float32 per step: {', '.join(f'{e:.3e}' for e in steps)}")
-    check(finite, "non-finite multimodal logits")
+    check(finite, f"{cfg.name}: non-finite multimodal logits")
     check(max([d_mm, d_bare] + steps) < DENSE_REL_LIMIT,
-          "the bf16 dense path strays from its float32 copy")
-    check(moved > d_mm, "the conditioning frames do not move the logits")
+          f"{cfg.name}: the bf16 dense path strays from its float32 copy")
+    check(moved > d_mm, f"{cfg.name}: the conditioning frames do not move the logits")
+    if kw:
+        rows = _rel(last32[0], flat32[0])
+        print(f"  M-RoPE sections {cfg.mrope_sections}: the three distinct rows move the "
+              f"float32 last logits by rel {rows:.3e} against one row (limit: more "
+              f"than the bf16 rounding {d_mm:.3e})")
+        check(rows > d_mm, f"{cfg.name}: the M-RoPE rows do not move the logits")
+
+
+def phase_dense_multimodal(model, params):
+    phase("21 the multimodal dense path")
+    _dense_frames(model, params)
 
     # tiny float32 multimodal configs: the engine's tokens and the dense
     # path with frames, CPU against CUDA
@@ -2091,6 +2264,24 @@ def phase_dense_multimodal(model, params):
               f"max_abs_err={err:.3e} (limit 1e-5)")
         check(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5),
               f"{what}: the prefill with frames differs on the card")
+
+
+def phase_dense_cut():
+    """The dense path with frames of llama4-scout-17b-a16e and qwen2-vl-72b
+    at full width, each on a fresh MM_CUT_LAYERS-layer cut (its bf16
+    weights and their float32 copy: about 39 and 26 GB); qwen2-vl's also
+    with three distinct M-RoPE rows through its sections."""
+    t0 = time.perf_counter()
+    phase(f"21b the multimodal dense path at full width, depth cut to {MM_CUT_LAYERS} layers")
+    for arch in ("llama4-scout-17b-a16e", "qwen2-vl-72b"):
+        _free_card(f"the {arch} {MM_CUT_LAYERS}-layer init")
+        model, params = _init_full_width(
+            dataclasses.replace(get_config(arch), num_layers=MM_CUT_LAYERS))
+        _dense_frames(model, params,
+                      _mrope_rows(1, MM_S) if model.cfg.mrope_sections else None)
+        del model, params
+        torch.cuda.empty_cache()
+    print(f"  phase 21b: {time.perf_counter() - t0:.1f} s wall")
 
 
 def phase_replicas(model, params):
@@ -2794,7 +2985,7 @@ def _train_profile(step_fn, wall_ms, ours):
               if e.device_type() == cpu and any(c in e.name() for c in DEVICE_CALLS)
               and rng.start_ns() <= e.start_ns() <= rng.end_ns()}
     dev = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
-           and e.correlation_id() in step]
+           and e.correlation_id() in step and not e.is_user_annotation()]
     busy = sum(e.duration_ns() for e in dev) / 1e6
     by_name = {}
     for e in dev:
@@ -3451,6 +3642,11 @@ def main():
     phase_parity_moe()
     phase_serve_dense()
     phase_serve_granite()
+    model, params = phase_serve_scout()
+    phase_moe_layer(model, params, "17b")
+    del model, params
+    phase_serve_qwen2_vl()
+    phase_dense_cut()
     model, params = phase_serve_musicgen()
     phase_dense_multimodal(model, params)
     phase_replicas(model, params)

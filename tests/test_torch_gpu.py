@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card, on the cases of tests/test_kernels.py and at the main
-paths' shapes (musicgen-medium's hd 64, 24-head MHA and granite-34b's
-48-query-head MQA among them), and the engine's tokens on the card against
+paths' shapes (musicgen-medium's hd 64, 24-head MHA, granite-34b's
+48-query-head MQA, and llama4-scout's and qwen2-vl-72b's heads among them), and the engine's tokens on the card against
 the CPU, for an attention model and a 48-query-head MQA model (both
 decode schedules), a routed MoE model (capacity factors 8.0 and 0.5), a
 mamba2 model and a hybrid RG-LRU model, and through the real-time front
@@ -78,9 +78,10 @@ PAGED_DECODE_CASES = [
                               449, 480, 500, 2, 15, 31, 32, 48, 97, 510]),
     # query groups past 8, in slices of 8 rows: granite-34b's MQA (48 query
     # heads on one kv head, six slices) at B 1, 8 and 32 and at long
-    # context; llama4-scout's G 5 (40 on 8); G 9 and G 12, whose last slice
-    # is short (one row, four rows), in bf16's tensor-core walk at hd 128
-    # and 64 and in float32's page walk at 4-token pages
+    # context; llama4-scout's G 5 (40 on 8), also at long context; G 9
+    # and G 12, whose last slice is short (one row, four rows), in bf16's
+    # tensor-core walk at hd 128 and 64 and in float32's page walk at
+    # 4-token pages
     (1, 48, 1, 128, 16, 32, [512]),
     (8, 48, 1, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
     (32, 48, 1, 128, 16, 32, [1, 16, 17, 511, 512, 0, 33, 64, 65, 100, 128, 129,
@@ -89,6 +90,12 @@ PAGED_DECODE_CASES = [
     (2, 48, 1, 128, 16, 512, [8192, 5000]),
     (8, 40, 8, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
     (8, 40, 8, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    (2, 40, 8, 128, 16, 512, [8192, 5000]),
+    # qwen2-vl-72b's G 8 (64 query heads on 8 kv heads, one full slice) at
+    # the serve's contexts, up to the table and at long context
+    (8, 64, 8, 128, 16, 32, [100, 87, 120, 95, 101, 81, 116, 0]),
+    (8, 64, 8, 128, 16, 32, [512, 1, 17, 300, 64, 511, 250, 0]),
+    (2, 64, 8, 128, 16, 512, [8192, 5000]),
     (4, 9, 1, 128, 16, 32, [300, 17, 0, 512]),
     (3, 24, 2, 64, 16, 8, [128, 5, 77]),
     (3, 12, 1, 32, 4, 6, [24, 2, 0]),
@@ -111,6 +118,10 @@ CHUNKED_CASES = [
     # positions, one in part), llama4-scout's G 5, G 9 and G 12
     (64, 512, 48, 1, 128, 0), (64, 512, 48, 1, 128, 448), (7, 40, 48, 1, 32, 33),
     (64, 512, 40, 8, 128, 448), (37, 300, 9, 1, 128, 200), (64, 512, 24, 2, 64, 37),
+    # llama4-scout's and qwen2-vl-72b's heads (Hq 40 and 64 on Hkv 8): a
+    # first chunk, a chunk at the table's end, a ragged chunk
+    (64, 512, 40, 8, 128, 0), (37, 300, 40, 8, 128, 200),
+    (64, 512, 64, 8, 128, 0), (64, 512, 64, 8, 128, 448), (37, 300, 64, 8, 128, 200),
 ]
 
 # (b, s, h, p, n, chunk): tests/test_kernels.py's SSD sweep, then mamba2-1.3b
