@@ -1,0 +1,6 @@
+"""``prefix_hit_pct`` in a cell whose end-to-end metric is ``itl_p95_ms``: the
+offline work it reads is what runs beside each decode call. The same
+reading as ``metrics/prefix_hit_pct.py``."""
+from echo_bench.spec import metric_reader
+
+read = metric_reader("prefix_hit_pct")
