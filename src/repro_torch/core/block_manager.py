@@ -185,6 +185,8 @@ class BlockManagerMetrics:
     migrated_in_blocks: int = 0          # received from another replica
     migrated_in_bytes: int = 0
     migrate_bounced_blocks: int = 0      # arrivals refused by the host tier
+    scanned_blocks: int = 0              # blocks visited by whole-pool walks
+    hashed_blocks: int = 0               # chain hashes computed
 
     @property
     def hit_rate(self) -> float:
@@ -227,10 +229,12 @@ class BlockManager:
     # ------------------------------------------------------------- stats
     @property
     def running_blocks(self) -> int:
+        self.metrics.scanned_blocks += len(self.blocks)
         return sum(1 for b in self.blocks if b.ref > 0)
 
     @property
     def cached_blocks(self) -> int:
+        self.metrics.scanned_blocks += len(self.blocks)
         return sum(1 for b in self.blocks if b.ref == 0 and b.hash is not None)
 
     @property
@@ -241,6 +245,7 @@ class BlockManager:
         """For the Fig.10 memory-occupancy benchmark."""
         out = {"running_online": 0, "running_offline": 0,
                "free_online": 0, "free_offline": 0, "unused": len(self.free)}
+        self.metrics.scanned_blocks += len(self.blocks)
         for b in self.blocks:
             if b.ref > 0:
                 key = "running_online" if b.task_type == TaskType.ONLINE else "running_offline"
@@ -294,15 +299,17 @@ class BlockManager:
     # ------------------------------------------------------------- probing
     def probe_prefix(self, tokens: Sequence[int]) -> int:
         """Longest cached full-block prefix (in tokens). Read-only."""
-        n, prev, cached = 0, 0, 0
+        n, prev, cached, hashed = 0, 0, 0, 0
         bs = self.block_size
         while n + bs <= len(tokens):
             h = chain_hash(prev, tuple(tokens[n: n + bs]))
+            hashed += 1
             if h not in self.hash_to_bid:
                 break
             prev = h
             n += bs
             cached += bs
+        self.metrics.hashed_blocks += hashed
         return cached
 
     def device_chain_blocks(self, chain: Sequence[int]) -> int:
@@ -342,17 +349,21 @@ class BlockManager:
         prev = 0
         for bi in range(start_tokens // bs):
             if (bi + 1) * bs > len(tokens):
+                self.metrics.hashed_blocks += bi
                 return 0
             prev = chain_hash(prev, tuple(tokens[bi * bs:(bi + 1) * bs]))
         n = start_tokens
         restorable = 0
+        hashed = start_tokens // bs
         while n + bs <= len(tokens):
             h = chain_hash(prev, tuple(tokens[n: n + bs]))
+            hashed += 1
             if h in self.hash_to_bid or h not in self.host:
                 break
             prev = h
             n += bs
             restorable += bs
+        self.metrics.hashed_blocks += hashed
         return restorable
 
     def swap_in(self, req: Request, tokens: Sequence[int], now: float,
@@ -378,12 +389,13 @@ class BlockManager:
         start = len(req.block_ids) * bs
         prev = self._chain_up_to(req, len(req.block_ids), tokens)
         first_event = len(self._swap_events)
-        restored = 0
+        restored = hashed = 0
         while restored + bs <= max_tokens:
             n = start + restored
             if n + bs > len(tokens):
                 break
             h = chain_hash(prev, tuple(tokens[n: n + bs]))
+            hashed += 1
             hb = self.host.get(h)
             if hb is None or h in self.hash_to_bid:
                 break
@@ -412,6 +424,7 @@ class BlockManager:
             self.metrics.swapped_in_tokens += hb.n_tokens
             prev = h
             restored += bs
+        self.metrics.hashed_blocks += hashed
         if restored and self.io.restore_last_only:
             for i in range(first_event, len(self._swap_events) - 1):
                 kind, bid, hb = self._swap_events[i]
@@ -534,12 +547,14 @@ class BlockManager:
         req.owner_pins.clear()
 
     def evictable_count(self) -> int:
+        self.metrics.scanned_blocks += len(self.blocks)
         return sum(1 for b in self.blocks if b.ref == 0 and b.hash is not None)
 
     def clean_evictable_count(self) -> int:
         """Evictable blocks whose eviction carries no punishment (priority
         < 1: dead offline, finished online) — plus never-used free blocks."""
         n = len(self.free)
+        self.metrics.scanned_blocks += len(self.blocks)
         for b in self.blocks:
             if b.ref == 0 and b.hash is not None and self._priority(b) < 1.0:
                 n += 1
@@ -651,11 +666,14 @@ class BlockManager:
         prev = self._chain_up_to(req, have, tokens)
         ok = True
         matching = True                  # only a *leading* prefix may hit
+        hashed = 0
         for bi in range(have, need_blocks):
             start = bi * bs
             full = start + bs <= len(tokens)
-            h = (chain_hash(prev, tuple(tokens[start: start + bs]))
-                 if (full and matching) else None)
+            h = None
+            if full and matching:
+                h = chain_hash(prev, tuple(tokens[start: start + bs]))
+                hashed += 1
             offline = req.task_type == TaskType.OFFLINE
             if full:
                 self.metrics.lookup_blocks += 1
@@ -694,6 +712,7 @@ class BlockManager:
                 blk.n_tokens = 0
             newly.append(bid)
             req.block_ids.append(bid)
+        self.metrics.hashed_blocks += hashed
         if not ok:
             for bid in newly:
                 self._release_block(bid, now)
@@ -704,9 +723,10 @@ class BlockManager:
     def _chain_up_to(self, req: Request, n_blocks: int, tokens: Sequence[int]) -> int:
         prev = 0
         bs = self.block_size
-        for bi in range(n_blocks):
-            if (bi + 1) * bs <= len(tokens):
-                prev = chain_hash(prev, tuple(tokens[bi * bs: (bi + 1) * bs]))
+        n = min(n_blocks, len(tokens) // bs)
+        for bi in range(n):
+            prev = chain_hash(prev, tuple(tokens[bi * bs: (bi + 1) * bs]))
+        self.metrics.hashed_blocks += n
         return prev
 
     def commit(self, req: Request, tokens: Sequence[int], now: float) -> None:
@@ -723,6 +743,8 @@ class BlockManager:
             blk = self.blocks[req.block_ids[n_full]]
             if blk.hash is None:
                 blk.n_tokens = covered % bs
+        # the loop hashes up to one block past the request's table
+        self.metrics.hashed_blocks += min(n_full, len(req.block_ids) + 1)
         for bi in range(n_full):
             chunk = tuple(tokens[bi * bs: (bi + 1) * bs])
             h = chain_hash(prev, chunk)

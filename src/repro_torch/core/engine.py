@@ -50,7 +50,6 @@ class IterationRecord:
     iter_time: float
     offline_tokens: int
     online_tokens: int
-    usage: Dict[str, int] = field(default_factory=dict)
     hit_rate: float = 0.0
     threshold_blocks: int = 0
     swap_in_tokens: int = 0        # tokens restored from the host tier
@@ -395,6 +394,8 @@ class EchoEngine:
         self._pending_migrate_in_bytes = 0  # fabric arrivals awaiting clock
         self.pending: List[Request] = []       # (arrival_time, rid) ordered
         self.listeners: List[EngineListener] = []
+        # the wall-clock host track (``obs.Tracer.attach_host``); None: off
+        self.host_track = None
         self._rng = np.random.default_rng(seed)
         # step() is not reentrant and not thread-safe: the real-time layer
         # drives it from a worker thread (asyncio.to_thread), so a second
@@ -666,11 +667,19 @@ class EchoEngine:
             self._step_lock.release()
 
     def _step_impl(self) -> Optional[IterationRecord]:
+        # host-track spans: ``step`` and, one after another, its children
+        # (schedule, swaps, runner.prefill / commit per chunk, runner.decode,
+        # commit, clock, emit, kv_threshold, record)
+        ht = self.host_track
+        if ht is not None:
+            ht.open("schedule", t=ht.open("step"))
         self._pull_arrivals()
         tsched = time.perf_counter()
         plan = self.scheduler.schedule(self.now)
         ts0 = time.perf_counter()
         schedule_wall = ts0 - tsched
+        if ht is not None:
+            ht.switch("swaps")
         out_tok, out_bytes, in_bytes = self._execute_swaps()
         swap_out_tokens = out_tok + self._pending_swap_out
         swap_out_bytes = out_bytes + self._pending_swap_out_bytes
@@ -702,7 +711,8 @@ class EchoEngine:
             # idle: advance to next arrival
             if self.pending:
                 self.now = max(self.now, self.pending[0].arrival_time)
-                return None
+            if ht is not None:
+                ht.close(self._step_args(plan, 0, 0), levels=2)
             return None
 
         st = self._stager
@@ -718,6 +728,9 @@ class EchoEngine:
         # ---- prefill chunks (one by one, §5.2)
         for req, chunk in plan.prefills:
             start = req.computed_tokens
+            if ht is not None:
+                ht.switch("runner.prefill", req.rid,
+                          {"live": chunk, "ctx": start})
             toks = req.full_tokens[start: start + chunk]
             if self.runner is not None:
                 # complete in-flight staging on this request's blocks only —
@@ -728,6 +741,8 @@ class EchoEngine:
             else:
                 logits = self._fabricate(req)
             req.computed_tokens = start + chunk
+            if ht is not None:
+                ht.switch("commit", req.rid)
             self.bm.commit(req, req.full_tokens, self.now)
             if req.is_online:
                 online_tokens += chunk
@@ -741,6 +756,8 @@ class EchoEngine:
         # ---- decode batch
         decodes = [r for r in plan.decodes if not r.done]
         if decodes:
+            if ht is not None:
+                ht.switch("runner.decode", None, {"live": len(decodes)})
             if self.runner is not None:
                 self._fence({b for r in decodes for b in r.block_ids})
                 tokens = [r.full_tokens[r.computed_tokens] for r in decodes]
@@ -750,6 +767,8 @@ class EchoEngine:
                                             rids=[r.rid for r in decodes])
             else:
                 logits = np.stack([self._fabricate(r) for r in decodes])
+            if ht is not None:
+                ht.switch("commit")
             for i, req in enumerate(decodes):
                 req.computed_tokens += 1
                 self.bm.commit(req, req.full_tokens, self.now)
@@ -760,6 +779,8 @@ class EchoEngine:
                 emissions.append((req, logits[i]))
 
         wall = time.perf_counter() - t0
+        if ht is not None:
+            ht.switch("clock")
         spans = [(r.computed_tokens - c, r.computed_tokens)
                  for r, c in plan.prefills]
         dlens = [r.total_len for r in decodes]
@@ -817,6 +838,8 @@ class EchoEngine:
             if migrate_transfer > 0.0:
                 self.calibrator.observe_migration(migrate_in_bytes,
                                                   migrate_transfer)
+        if ht is not None:
+            ht.switch("emit")
         for req, lg in emissions:               # tokens arrive at iteration end
             self._emit(req, lg)
         for req in plan.preempted:
@@ -833,6 +856,8 @@ class EchoEngine:
                 l.on_swap_overlap(swap_transfer, swap_exposed, self.now)
 
         # ---- estimator feedback + threshold update (§5.3)
+        if ht is not None:
+            ht.switch("kv_threshold")
         online_kv = self._online_kv_tokens()
         self.mem_pred.observe(self.now, online_kv)
         if self.policy.task_aware_kv:
@@ -848,6 +873,8 @@ class EchoEngine:
                     inflight_blocks=(st.inflight_blocks()
                                      if st is not None else 0),
                     io=self.io)
+        if ht is not None:
+            ht.switch("record")
         t_start = self.now - iter_time
         rec = IterationRecord(
             t=self.now,
@@ -858,7 +885,6 @@ class EchoEngine:
             iter_time=iter_time,
             offline_tokens=offline_tokens,
             online_tokens=online_tokens,
-            usage=self.bm.usage_breakdown(),
             hit_rate=self.bm.metrics.hit_rate,
             threshold_blocks=self.bm.threshold_blocks,
             swap_in_tokens=swap_in_tokens,
@@ -886,7 +912,16 @@ class EchoEngine:
                 decodes=decodes)
             for l in detailed:
                 l.on_iteration(rec, detail)
+        if ht is not None:
+            ht.close(self._step_args(plan, len(plan.prefills), len(decodes)),
+                     levels=2)
         return rec
+
+    def _step_args(self, plan, n_prefill: int, n_decode: int) -> dict:
+        """The ``step`` span's args: the clock at its end and the
+        scheduler's estimate of the iteration."""
+        return {"now": self.now, "predicted_us": round(plan.est_time * 1e6),
+                "n_prefill": n_prefill, "n_decode": n_decode}
 
     # ------------------------------------------------------------- loops
     def run(self, max_iters: int = 10_000,

@@ -86,6 +86,8 @@ class Scheduler:
         self.online_queue: Deque[Request] = deque()
         self.running: List[Request] = []
         self.last_plan: Optional[Plan] = None
+        # the engine's host track (``obs.Tracer.attach_host``); None: off
+        self.host_track = None
 
     # ------------------------------------------------------------- intake
     def submit(self, req: Request) -> None:
@@ -366,6 +368,11 @@ class Scheduler:
     # ------------------------------------------------------------- schedule
     def schedule(self, now: float) -> Plan:
         plan = Plan()
+        # host-track spans, one per phase: continue, admit_online,
+        # decode_slots, shed, admit_offline, finalize
+        ht = self.host_track
+        if ht is not None:
+            ht.open("continue")
 
         # 1. base plan = last batch, minus finished: continue decodes/prefills
         self.running = [r for r in self.running
@@ -393,6 +400,8 @@ class Scheduler:
                 # else: waiting on a leader to commit the shared span
 
         # 2. admit online FCFS, preempting offline on memory pressure
+        if ht is not None:
+            ht.switch("admit_online")
         while self.online_queue:
             req = self.online_queue[0]
             if len(self.running) >= self.max_running:
@@ -431,6 +440,8 @@ class Scheduler:
 
         # decode slots for continuing decodes (may preempt offline, then —
         # memory-full fallback — later-arrived online)
+        if ht is not None:
+            ht.switch("decode_slots")
         kept = []
         for req in plan.decodes:
             ok = self._alloc(req, req.total_len + 1, now,
@@ -463,6 +474,8 @@ class Scheduler:
         # the request keeps holding blocks for work it won't do this
         # iteration, inflating running_blocks/depleting free memory for
         # same-iteration offline admission.
+        if ht is not None:
+            ht.switch("shed")
         budget = self._slo_budget(now, plan)
         if self.policy.use_estimator:
             while self._estimate(plan) > budget:
@@ -483,13 +496,19 @@ class Scheduler:
                 break
 
         # 4. offline admission (only when the online queue is drained, §6)
+        if ht is not None:
+            ht.switch("admit_offline")
         if not self.online_queue:
             self._admit_offline(now, plan, budget)
 
         # 5. finalize
+        if ht is not None:
+            ht.switch("finalize")
         plan.benefit = float(self._plan_tokens(plan))
         plan.est_time = self._estimate(plan)
         self.last_plan = plan
+        if ht is not None:
+            ht.close()
         return plan
 
     # ------------------------------------------------------------- offline

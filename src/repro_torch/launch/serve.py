@@ -103,6 +103,15 @@ def admission_config(args):
     return cfg if cfg.active else None
 
 
+def attach_host(tracer, backend) -> None:
+    """--trace-out also records each engine thread's own spans on the wall
+    clock (the tracer's host track): one per replica."""
+    if tracer is None:
+        return
+    for i, eng in enumerate(backend.engines()):
+        tracer.attach_host(eng, replica=i)
+
+
 def setup_obs(args, service: EchoService):
     """Attach the observability layer when --trace-out/--metrics-out ask
     for it. Returns (tracer, registry), both None when disabled."""
@@ -112,6 +121,7 @@ def setup_obs(args, service: EchoService):
     tracer = Tracer(cap=args.trace_cap) if args.trace_out else None
     registry = MetricsRegistry()
     service.instrument(registry, tracer)
+    attach_host(tracer, service.backend)
     return tracer, registry
 
 
@@ -405,6 +415,7 @@ def serve_realtime(args) -> None:
         from repro_torch.obs import MetricsRegistry, Tracer
         tracer = Tracer(cap=args.trace_cap) if args.trace_out else None
         registry = rt.instrument(MetricsRegistry(), tracer)
+        attach_host(tracer, rt.service.backend)
 
     async def _serve() -> None:
         stop = asyncio.Event()

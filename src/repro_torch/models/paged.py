@@ -25,6 +25,14 @@ from repro_torch.models.model import Model
 from repro_torch.params import tree_map
 
 
+def padded_rows(kind: str, live: int, chunk_size: int) -> int:
+    """Rows a runner call computes for ``live`` rows: a prefill chunk pads
+    to ``chunk_size``, a decode batch to the next power of two."""
+    if kind == "prefill":
+        return chunk_size
+    return 1 << (live - 1).bit_length() if live > 1 else 1
+
+
 def _write_pages(pages, flat_idx, new):
     """pages (P,bs,H,hd), updated in place; flat_idx (N,) into P*bs. The
     caller passes only the live rows: torch has no dropping scatter like
@@ -97,6 +105,11 @@ class TorchPagedRunner:
         self.max_pages = max_pages_per_seq
         self.chunk_size = chunk_size
         self.attn_impl = attn_impl
+        # the engine's host track (``obs.Tracer.attach_host``): each call
+        # records ``prep`` (host arrays, H2D), ``forward`` (launching the
+        # stack) and ``logits`` (the copy to the host, which waits for the
+        # card) inside the engine's ``runner.*`` span; None: off
+        self.host_track = None
         self.io = io_spec_for_model(model)   # paged: per-token KV payload
         shp = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
         self.pages = []
@@ -224,8 +237,12 @@ class TorchPagedRunner:
     def prefill_chunk(self, token_chunk: Sequence[int], ctx_len: int,
                       block_table: Sequence[int],
                       rid: Optional[int] = None) -> np.ndarray:
-        sc = self.chunk_size
         chunk_len = len(token_chunk)
+        sc = padded_rows("prefill", chunk_len, self.chunk_size)
+        ht = self.host_track
+        if ht is not None:
+            ht.note({"rows": sc})
+            ht.open("prep")
         toks = np.zeros((sc,), np.int64)
         toks[:chunk_len] = token_chunk
         bt = np.zeros((self.max_pages,), np.int32)
@@ -244,16 +261,28 @@ class TorchPagedRunner:
         def attn_fn(p, cfg, x, cos, sin, kp, vp):
             return _attn_prefill_paged(p, cfg, x, cos, sin, kp, vp, write_idx,
                                        gather_idx, ctx_len, impl=self.attn_impl)
+        if ht is not None:
+            ht.switch("forward")
         h = self._run_stack(h, rope, attn_fn)
         h_last = h[0, max(chunk_len - 1, 0)]
-        return self._final_logits(h_last[None])[0].float().cpu().numpy()
+        logits = self._final_logits(h_last[None])[0]
+        if ht is not None:
+            ht.switch("logits")
+        out = logits.float().cpu().numpy()
+        if ht is not None:
+            ht.close()
+        return out
 
     @torch.inference_mode()
     def decode(self, tokens: Sequence[int], block_tables: List[Sequence[int]],
                pos: Sequence[int],
                rids: Optional[Sequence[int]] = None) -> np.ndarray:
         b = len(tokens)
-        bpad = 1 << (b - 1).bit_length() if b > 1 else 1
+        bpad = padded_rows("decode", b, self.chunk_size)
+        ht = self.host_track
+        if ht is not None:
+            ht.note({"rows": bpad})
+            ht.open("prep")
         toks = np.zeros((bpad,), np.int64)
         toks[:b] = tokens
         bts = np.zeros((bpad, self.max_pages), np.int32)
@@ -272,6 +301,13 @@ class TorchPagedRunner:
         def attn_fn(p, cfg, x, cos, sin, kp, vp):
             return _attn_decode_paged(p, cfg, x, cos, sin, kp, vp, bts_d,
                                       ctx_lens, write_idx, impl=self.attn_impl)
+        if ht is not None:
+            ht.switch("forward")
         h = self._run_stack(h, rope, attn_fn)
         logits = self._final_logits(h[:b, 0])
-        return logits.float().cpu().numpy()
+        if ht is not None:
+            ht.switch("logits")
+        out = logits.float().cpu().numpy()
+        if ht is not None:
+            ht.close()
+        return out

@@ -14,6 +14,10 @@ Track layout (one Perfetto "process" per replica):
     tid 3      swap copy-stream — PCIe transfer spans + swap-out instants
     tid 16+rid one track per request: queued span, prefill chunk spans,
                decode spans, preempt/swap-in instants, parked spans
+  pid 9996     host (wall clock) — ``attach_host``: the engine thread's
+               own spans (``step`` and its children, the scheduler's
+               phases, the paged runner's calls), stamped with
+               ``time.perf_counter_ns`` and drawn from the attach instant
   pid 9997     rt frontdoor   — per-connection wall-clock spans (submit to
                terminal, first-token instant); NOTE this pid's timeline is
                the *serving* clock, the engine pids' is the backend clock
@@ -24,13 +28,14 @@ Bounded overhead: events are stored as tuples in a ``deque(maxlen=cap)``
 (oldest events drop first; ``dropped_events`` counts them) and the JSON
 dicts are only built at export time. Zero cost when not attached — the
 engine skips detail construction entirely when no listener overrides
-``on_iteration``.
+``on_iteration``; a host-track span site costs one ``is None`` test.
 """
 from __future__ import annotations
 
 import json
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from time import perf_counter_ns
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from repro_torch.core.engine import EngineListener, IterationDetail, IterationRecord
 from repro_torch.core.request import Request, RequestState
@@ -39,9 +44,72 @@ TID_SCHEDULE = 1
 TID_KERNEL = 2
 TID_SWAP = 3
 TID_REQ_BASE = 16          # request track = TID_REQ_BASE + rid
+HOST_PID = 9996
 RT_PID = 9997
 SERVICE_PID = 9998
 ROUTER_PID = 9999
+
+
+class HostSpan(NamedTuple):
+    """One closed span of the host track: ``perf_counter_ns`` stamps, its
+    own id, its parent's (0 for a root), the request it served (if any)
+    and a few integer args."""
+    name: str
+    t0: int
+    t1: int
+    id: int
+    parent: int
+    rid: Optional[int]
+    args: Optional[dict]
+    tid: int
+
+
+class HostTrack:
+    """The open spans of one engine thread, a stack: ``open`` pushes,
+    ``close`` pops into the tracer's ring, ``switch`` closes the top span
+    and opens its next sibling at the same instant. The engine, its
+    scheduler and its runner hold one each as ``host_track``, ``None``
+    until ``Tracer.attach_host`` sets it, so that a span site costs one
+    ``is None`` test: no object is built and no clock is read."""
+
+    def __init__(self, tracer: "Tracer", tid: int):
+        self._tr = tracer
+        self._tid = tid
+        self._stack: List[list] = []        # [name, t0, id, rid, args]
+        self._ids = 0
+
+    def open(self, name: str, rid: Optional[int] = None,
+             args: Optional[dict] = None, t: Optional[int] = None) -> int:
+        """Open ``name`` inside the innermost open span, now or at ``t``.
+        Returns the instant."""
+        if t is None:
+            t = perf_counter_ns()
+        self._ids += 1
+        self._stack.append([name, t, self._ids, rid, args])
+        return t
+
+    def note(self, args: dict) -> None:
+        """Add ``args`` to the innermost open span, if one is open."""
+        if self._stack:
+            top = self._stack[-1]
+            top[4] = {**top[4], **args} if top[4] else args
+
+    def close(self, args: Optional[dict] = None, levels: int = 1) -> int:
+        """Close the ``levels`` innermost spans at one instant; ``args`` go
+        to the last closed. Returns the instant."""
+        t1 = perf_counter_ns()
+        for i in range(levels):
+            name, t0, sid, rid, a = self._stack.pop()
+            if args and i == levels - 1:
+                a = {**a, **args} if a else args
+            parent = self._stack[-1][2] if self._stack else 0
+            self._tr._record(("H", name, t0, t1, sid, parent, rid, a,
+                              self._tid))
+        return t1
+
+    def switch(self, name: str, rid: Optional[int] = None,
+               args: Optional[dict] = None) -> None:
+        self.open(name, rid, args, self.close())
 
 
 class Tracer:
@@ -54,6 +122,7 @@ class Tracer:
         self._threads: Dict[Tuple[int, int], str] = {}
         self.n_recorded = 0
         self._engine_tracers: List[_EngineTracer] = []
+        self.host_origin_ns: Optional[int] = None
 
     # ------------------------------------------------------------- recording
     def span(self, pid: int, tid: int, name: str, t0: float, dur: float,
@@ -66,6 +135,12 @@ class Tracer:
                 args: Optional[dict] = None, cat: str = "echo") -> None:
         self.n_recorded += 1
         self._events.append(("i", name, t, 0.0, pid, tid, args, cat))
+
+    def _record(self, span: tuple) -> None:
+        """A host span, as ``"H"`` and ``HostSpan``'s fields: the ring holds
+        plain tuples, and ``host_spans`` names their fields."""
+        self.n_recorded += 1
+        self._events.append(span)
 
     def set_process(self, pid: int, name: str) -> None:
         self._procs.setdefault(pid, name)
@@ -107,6 +182,26 @@ class Tracer:
         engine.listeners.append(lt)
         self._engine_tracers.append(lt)
         return lt
+
+    def attach_host(self, engine, replica: int = 0) -> HostTrack:
+        """Turn on the host track of one engine: spans of its thread's own
+        work on the wall clock (pid ``HOST_PID``, one thread per replica),
+        beside the engine-clock tracks ``attach`` draws. The engine, its
+        scheduler and a runner that records spans share one stack."""
+        if self.host_origin_ns is None:
+            self.host_origin_ns = perf_counter_ns()
+        self.set_process(HOST_PID, "host (wall clock)")
+        self.set_thread(HOST_PID, replica + 1, f"replica {replica} engine thread")
+        track = HostTrack(self, replica + 1)
+        engine.host_track = engine.scheduler.host_track = track
+        if hasattr(engine.runner, "host_track"):
+            engine.runner.host_track = track
+        return track
+
+    def host_spans(self) -> List[HostSpan]:
+        """The host track's spans still in the ring, in the order they
+        closed (a child before its parent)."""
+        return [HostSpan(*e[1:]) for e in self._events if e[0] == "H"]
 
     def _attach_router(self, router) -> None:
         self.set_process(ROUTER_PID, "router")
@@ -179,7 +274,11 @@ class Tracer:
             events.append({"ph": "M", "name": "thread_sort_index",
                            "pid": pid, "tid": tid,
                            "args": {"sort_index": tid}})
-        for ph, name, t, dur, pid, tid, args, cat in self._events:
+        for e in self._events:
+            if e[0] == "H":
+                events.append(self._host_event(HostSpan(*e[1:])))
+                continue
+            ph, name, t, dur, pid, tid, args, cat = e
             ev = {"ph": ph, "name": name, "ts": t * 1e6, "pid": pid,
                   "tid": tid, "cat": cat}
             if ph == "X":
@@ -189,9 +288,22 @@ class Tracer:
             if args:
                 ev["args"] = args
             events.append(ev)
+        other = {"recorded": self.n_recorded, "dropped": self.dropped_events}
+        if self.host_origin_ns is not None:
+            other["host_origin_ns"] = self.host_origin_ns
         return {"traceEvents": events, "displayTimeUnit": "ms",
-                "otherData": {"recorded": self.n_recorded,
-                              "dropped": self.dropped_events}}
+                "otherData": other}
+
+    def _host_event(self, e: HostSpan) -> dict:
+        args = {"id": e.id, "parent": e.parent}
+        if e.rid is not None:
+            args["rid"] = e.rid
+        if e.args:
+            args.update(e.args)
+        return {"ph": "X", "name": e.name,
+                "ts": (e.t0 - self.host_origin_ns) / 1e3,
+                "dur": (e.t1 - e.t0) / 1e3, "pid": HOST_PID, "tid": e.tid,
+                "cat": "host", "args": args}
 
     def write(self, path: str) -> None:
         with open(path, "w") as f:
